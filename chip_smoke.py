@@ -4,27 +4,46 @@
 
 Phases (one JSON line each, prefixed "phase"):
   device   the card's name, count and nvidia-smi name/power limit;
-  build    nvcc builds of every CUDA kernel of the main path (csrc/*.cu);
+  build    nvcc builds of every CUDA kernel (csrc/*.cu), one process each,
+           all started together;
   kernels  each kernel against its plain PyTorch version on the card at the
            main path's shapes (720p, batch 24, 8 levels, 1024 keypoints a
-           frame): results must be identical; times by CUDA events;
+           frame; kernel B3 on one 1280x720 frame, and on a 479x641 frame
+           and fractional input): results must be identical; times by CUDA
+           events;
   small    the slice at 320x240 (the repository's pipeline fixture) on the
            card: extraction identical to the CPU plain path, ATE within the
            fixture's bound, BA fired and improved its cost;
   main     SLAMSystem(SLAMConfig()).process_batch on 720p synthetic frames in
-           batches of 24 with BA on its 2 s input-time tick: 144 warm-up
-           frames (BA must fire among them) and 240 timed ones; the kernels'
-           launch counters are reset just before and read just after, and
-           both must have grown.
-Then the line {"kernels": [...]}, the nvidia-smi line, and last
+           batches of 24 with BA on its 2 s input-time tick, place
+           recognition off: 144 warm-up frames (BA must fire among them) and
+           240 timed ones;
+  place_small   SLAMSystem.process with place recognition on (online
+           vocabulary) on the relocalization fixture of tests/test_reloc.py
+           (160x120, a blackout, then a replay): it must relocalize and
+           bring the replay's ATE below 0.15 m;
+  place_frames  SLAMSystem(SLAMConfig()) with the shipped vocabulary and every
+           default on, frame by frame through process() at 720p, on two
+           orbits of a revisit trajectory with injected depth-scale drift
+           (scripts/loop720p.py's fixture): at least one loop must be
+           verified and applied;
+  place_batch   bench.py's place stage on the port: the shipped vocabulary,
+           place recognition on, the 6-frame 720p fixture cycled, 72
+           warm-up frames then 240 timed ones in batches of 24.
+The kernels' launch counters are reset just before main, place_frames and
+place_batch are driven and read just after; B1 and B2 must have launched in
+each.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -34,7 +53,8 @@ import numpy as np
 import torch
 
 from dynamic_visual_slam_tpu_torch import kernels
-from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
+from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
+                                                  SLAMConfig)
 from dynamic_visual_slam_tpu_torch.frontend import orb
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
@@ -46,9 +66,19 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # lane per clock: 132 SMs x 128 lanes x 1.98 GHz boost (H100 SXM), which is
 # half the data sheet's 67 TFLOP/s, since that counts an FMA as two
 F32_INSTR_PER_S = 132 * 128 * 1.98e9
+# FAST-9 score (kernels B1, B3), f32 operations a pixel, counted in
+# csrc/fast_score.cu: 16 differences; for bright and for dark 3 x 16 min/max
+# of the log-step window tree + 1 + 15 x 2 over the arcs (79 each); one
+# negation and one max
+FAST_OPS_PER_PX = 16 + 2 * 79 + 2
 BATCH = 24
 WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA round
 TIMED_BATCHES = 10             # 240 frames, BA fires on its 2 s tick
+ORBIT_FRAMES = 240             # place_frames: frames per orbit (two orbits)
+PLACE_SYNC_EVERY = 3           # place_batch: bench.py's default
+PLACE_TIMED = 240              # place_batch: timed frames, as bench.py
+VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                     "orbvoc_synth.npz")
 T_START = time.perf_counter()
 
 
@@ -139,9 +169,30 @@ def phase_kernels(frames, cfg: SLAMConfig):
         fail(f"fast_score differs from corner_score: max abs {b1_err}")
     b1_ms = cuda_ms(lambda: fields.fast_score_batch(levels))
     b1_plain = cuda_ms(lambda: [fast.corner_score(lv) for lv in levels])
-    # one f32 read + one f32 written a pixel; ~175 f32 instructions a pixel
-    # (16 differences, 2 x (64 window min/max + 15 arc max/min), 1 max)
-    b1_bound, b1_by = bound(8 * n_px, 175 * n_px)
+    # one f32 read + one f32 written a pixel
+    b1_bound, b1_by = bound(8 * n_px, FAST_OPS_PER_PX * n_px)
+
+    # --- B3: FAST scores of one frame (corner_score_auto) ------------------
+    img = imgs[0].contiguous()
+    rng = np.random.default_rng(0)
+    odd = torch.from_numpy(rng.integers(0, 256, (479, 641)).astype(
+        np.float32)).to(dev)
+    frac = img + torch.from_numpy(rng.random(img.shape).astype(
+        np.float32)).to(dev)
+    b3_err = 0.0
+    for what, x in (("1280x720", img), ("479x641", odd),
+                    ("fractional 1280x720", frac)):
+        got3 = fast.corner_score_auto(x)
+        want3 = fast.corner_score(x)
+        torch.cuda.synchronize()
+        err = float((got3 - want3).abs().max())
+        b3_err = max(b3_err, err)
+        if not torch.equal(got3, want3):
+            fail(f"corner_score_auto differs from corner_score on {what}: "
+                 f"max abs {err}")
+    b3_ms = cuda_ms(lambda: fast.corner_score_auto(img))
+    b3_plain = cuda_ms(lambda: fast.corner_score(img))
+    b3_bound, b3_by = bound(8 * img.numel(), FAST_OPS_PER_PX * img.numel())
 
     # --- B2: moments + rBRIEF bits of all B x 1024 keypoint slots ----------
     _, inputs = orb.detect_batch(levels, got, cfg.orb)
@@ -178,6 +229,12 @@ def phase_kernels(frames, cfg: SLAMConfig):
              max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain,
              bound_ms=b2_bound, bound_by=b2_by, library_ms=None,
              shape=f"{n_kp} keypoints"),
+        dict(name=fast.B3_COUNTER, route="cuda",
+             source="dynamic_visual_slam_tpu_torch/csrc/fast_score.cu",
+             replaces="dynamic_visual_slam_tpu/ops/fast.py:111",
+             max_abs_err=b3_err, ms=b3_ms, plain_ms=b3_plain,
+             bound_ms=b3_bound, bound_by=b3_by, library_ms=None,
+             shape="one 1280x720 frame (and 479x641, fractional)"),
     ]
     emit("kernels", kernels=rows)
     return rows
@@ -280,7 +337,7 @@ def phase_main(frames, cfg: SLAMConfig):
     slam.finalize()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    launches = dict(kernels.launches)
+    launches = collections.Counter(kernels.launches)
 
     _, _, est = slam.frontend_trajectory()
     gt = np.stack(gts)
@@ -297,7 +354,7 @@ def phase_main(frames, cfg: SLAMConfig):
          keyframes=slam.stats["keyframes"], landmarks=int(len(lms["xyz"])),
          ate_m=ate, tracking_ok=float(np.mean([f.tracking_ok
                                                for f in slam.trajectory])),
-         launches=launches, ba_log=slam.ba_log[-3:],
+         launches=dict(launches), ba_log=slam.ba_log[-3:],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if slam.stats["ba_runs"] == ba_before:
         fail("main: BA never fired in the timed window")
@@ -305,10 +362,145 @@ def phase_main(frames, cfg: SLAMConfig):
         fail(f"main: a BA round raised its cost: {slam.ba_log}")
     if not math.isfinite(ate):
         fail("main: ATE not finite")
+    check_launches("main", launches)
+    return launches
+
+
+def check_launches(phase: str, launches) -> None:
     for name in kernels.SOURCES:
         if launches.get(name, 0) < 1:
-            fail(f"main: kernel {name} was not launched on the main path")
-    return launches
+            fail(f"{phase}: kernel {name} was not launched")
+
+
+def phase_place_small():
+    """tests/test_reloc.py's fixture and system arguments on the card: a
+    wandering segment, 6 blank frames while the camera jumps back, then a
+    replay of the segment from its 10th frame."""
+    cam = CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
+                       cx=79.5, cy=59.5)
+    base = SLAMConfig()
+    cfg = base.replace(
+        camera=cam,
+        keyframe=dataclasses.replace(base.keyframe, max_frames_between_kf=6),
+        map=MapConfig(max_landmarks=1024, max_keyframes=8,
+                      max_obs_per_landmark=6, max_obs_per_keyframe=256))
+    seg = list(synthetic.generate_sequence(cam, 60, seed=5,
+                                           depth_noise=0.004))
+    blank = np.zeros((cam.height, cam.width), np.float32)
+    frames = [(g, d, t) for g, d, _, t, _ in seg]
+    frames += [(blank, np.ones_like(blank), None)] * 6
+    frames += [(g, d, t) for g, d, _, t, _ in seg[10:]]
+    slam = SLAMSystem(cfg, vocab_train_keyframes=3, loop_min_gap=4,
+                      loop_min_score=0.08, loop_min_inliers=20,
+                      loop_correction=False, device="cuda")
+    t0 = time.perf_counter()
+    for i, (g, d, _) in enumerate(frames):
+        slam.process(g, d, i / 30.0)
+    slam.finalize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    est = np.stack([f.t_wc for f in slam.trajectory])[66:]
+    gt = np.stack([t for _, _, t in frames[66:]])
+    ate = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+    emit("place_small", frames=len(frames), seconds=dt, replay_ate_m=ate,
+         stats=slam.stats, reloc_log=slam.reloc_log,
+         loop_candidates=len(slam.loop_candidates))
+    if slam.stats["relocalizations"] < 1:
+        fail(f"place_small: no relocalization: {slam.reloc_log}")
+    if not ate < 0.15:
+        fail(f"place_small: replay ATE {ate} >= 0.15")
+
+
+def revisit_frames(cam: CameraConfig, n_orbit: int, drift: float = 0.35):
+    """scripts/loop720p.py's fixture: the seed-5 scene, two orbits of
+    loop_trajectory (radius 0.35, then 0.34), depth scaled by up to
+    1 + drift over the run.  → [(gray u8, depth mm u16, t_gt)]."""
+    scene = synthetic.SyntheticScene(cam, seed=5)
+    poses = synthetic.loop_trajectory(n_orbit) + \
+        synthetic.loop_trajectory(n_orbit, radius=0.34)
+    out = []
+    for i, (r, t) in enumerate(poses):
+        gray, depth = scene.render(r, t)
+        scale = 1.0 + drift * i / len(poses)
+        out.append((gray.astype(np.uint8),
+                    (depth * scale * 1000.0).astype(np.uint16), t))
+    return out
+
+
+def phase_place_frames(cfg: SLAMConfig):
+    """Every default on, the shipped vocabulary, frame by frame."""
+    cfg = cfg.replace(depth=dataclasses.replace(cfg.depth, max_depth=6.0))
+    frames = revisit_frames(cfg.camera, ORBIT_FRAMES)
+    slam = SLAMSystem(cfg, vocab_path=VOCAB, device="cuda")
+    slam.warmup_place()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    per_frame = []
+    t0 = time.perf_counter()
+    for i, (g, d, _) in enumerate(frames):
+        tf = time.perf_counter()
+        slam.process(g, d, i / 30.0)
+        torch.cuda.synchronize()
+        per_frame.append((time.perf_counter() - tf) * 1e3)
+    slam.finalize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    _, _, est = slam.frontend_trajectory()
+    gt = np.stack([t for _, _, t in frames])
+    ate = trajectory.ate_rmse(est, gt) if est.shape == gt.shape else \
+        float("nan")
+    applied = slam.stats.get("loops_applied", 0)
+    emit("place_frames", frames=len(frames), orbit_frames=ORBIT_FRAMES, fps=len(
+        frames) / dt, ms_per_frame_median=statistics.median(per_frame),
+        ms_per_frame_p90=float(np.percentile(per_frame, 90)),
+        keyframes=slam.stats["keyframes"],
+        loop_candidates=slam.stats["loop_candidates"], loops_applied=applied,
+        relocalizations=slam.stats["relocalizations"],
+        ba_runs=slam.stats["ba_runs"], ate_m=ate, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        loops=[{k: r[k] for k in ("keyframe", "candidate", "inliers",
+                                  "pnp_inliers") if k in r}
+               for r in slam.loop_candidates[:12]])
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        fail(f"place_frames: trajectory shape {est.shape} or not finite")
+    if slam.stats["loop_candidates"] < 1 or applied < 1:
+        fail(f"place_frames: {slam.stats['loop_candidates']} loops verified, "
+             f"{applied} applied")
+    check_launches("place_frames", launches)
+
+
+def phase_place_batch(frames, cfg: SLAMConfig):
+    """bench.py's _place_bench on the port, with its default sync_every."""
+    slam = SLAMSystem(cfg, enable_place_recognition=True, vocab_path=VOCAB,
+                      sync_every=PLACE_SYNC_EVERY, device="cuda")
+    slam.warmup_place()
+    kernels.reset_launch_counts()
+    for i0 in range(0, 72, BATCH):
+        gs, ds, tss, _ = batch_at(frames, i0)
+        slam.process_batch(gs, ds, tss)
+    slam.finalize()
+    staged = []
+    for i0 in range(72, 72 + PLACE_TIMED, BATCH):
+        gs, ds, tss, _ = batch_at(frames, i0)
+        staged.append((torch.from_numpy(gs).cuda(),
+                       torch.from_numpy(ds).cuda(), tss))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gs, ds, tss in staged:
+        slam.process_batch(gs, ds, tss)
+    slam.finalize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    emit("place_batch", fps_with_place=PLACE_TIMED / dt,
+         timed_frames=PLACE_TIMED, sync_every=PLACE_SYNC_EVERY, keyframes=slam.stats["keyframes"],
+         loop_checks=len(slam.loop_candidates) + len(slam.reloc_log),
+         stats=slam.stats, launches=launches)
+    if len(slam.trajectory) != 72 + PLACE_TIMED:
+        fail(f"place_batch: {len(slam.trajectory)} frames emitted")
+    check_launches("place_batch", launches)
 
 
 def main() -> None:
@@ -319,7 +511,11 @@ def main() -> None:
     rows = phase_kernels(frames, cfg)
     phase_small()
     launches = phase_main(frames, cfg)
+    phase_place_small()
+    phase_place_frames(cfg)
+    phase_place_batch(frames, cfg)
     for r in rows:
+        # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,7 +7,10 @@ imports JAX — and builds the port's NamedTuples of tensors on a device;
 ``to_numpy`` goes the other way.
 
 Covered: ``Keypoints``, ``TrackerState``, ``KeyframeBlock``, ``MapState``
-(``LandmarkMap`` + ``KeyframeDB``), ``BAProblem``.
+(``LandmarkMap`` + ``KeyframeDB``), ``BAProblem``; and the place
+recognition state, ``bow.Vocabulary`` (``k``, ``depth``, lists ``levels``
+and ``valid``, ``word_weights``) and ``bow.Database`` (``vocabulary``,
+``capacity``, ``vectors``, ``used``, ``count``), both ways.
 
 The reference's ``TrackerState.rng`` (a threefry key) has no torch
 counterpart and is dropped: the port takes its randomness from a
@@ -30,6 +33,7 @@ from dynamic_visual_slam_tpu_torch.backend.mapping import (KeyframeDB,
 from dynamic_visual_slam_tpu_torch.frontend.orb import Keypoints
 from dynamic_visual_slam_tpu_torch.frontend.tracker import (KeyframeBlock,
                                                              TrackerState)
+from dynamic_visual_slam_tpu_torch.place import bow
 
 # fields whose type is itself a NamedTuple
 _NESTED: Dict[Type, Dict[str, Type]] = {
@@ -88,3 +92,28 @@ def map_state(d, device="cpu") -> MapState:
 
 def ba_problem(d, device="cpu") -> BAProblem:
     return from_numpy(BAProblem, d, device)
+
+
+def vocabulary(d, device="cpu") -> bow.Vocabulary:
+    return bow._vocabulary(d["k"], d["depth"], d["levels"], d["valid"],
+                           d["word_weights"], device)
+
+
+def database(d, device="cpu") -> bow.Database:
+    return bow.Database(vocabulary(d["vocabulary"], device),
+                        capacity=int(d["capacity"]),
+                        vectors=_tensor(d["vectors"], device),
+                        used=_tensor(d["used"], device), count=int(d["count"]))
+
+
+def vocabulary_to_numpy(voc: bow.Vocabulary) -> Dict[str, Any]:
+    return dict(k=voc.k, depth=voc.depth,
+                levels=[lv.cpu().numpy() for lv in voc.levels],
+                valid=[va.cpu().numpy() for va in voc.valid],
+                word_weights=voc.word_weights.cpu().numpy())
+
+
+def database_to_numpy(db: bow.Database) -> Dict[str, Any]:
+    return dict(vocabulary=vocabulary_to_numpy(db.vocabulary),
+                capacity=db.capacity, vectors=db.vectors.cpu().numpy(),
+                used=db.used.cpu().numpy(), count=db.count)

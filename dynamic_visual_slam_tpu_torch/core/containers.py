@@ -108,6 +108,12 @@ def scatter_set(arr: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor,
     return ext[:n]
 
 
+def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor without a host read (indexing with a
+    0-d tensor converts it to a Python int, which waits for the device)."""
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
 def count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(-1)
 

@@ -190,6 +190,14 @@ def detect_level(score: torch.Tensor, quota: int, ini_th: float, min_th: float
 # Batched extractor
 # --------------------------------------------------------------------------
 
+def extract(img: torch.Tensor, cfg: ORBConfig) -> Keypoints:
+    """One (H, W) grayscale frame → Keypoints with capacity
+    cfg.max_keypoints: ``extract_batch`` on a batch of one, which the
+    reference states gives the same keypoints as its per-frame extractor.
+    One B1 and one B2 launch a frame."""
+    return Keypoints(*(a[0] for a in extract_batch(img[None], cfg)))
+
+
 def extract_batch(imgs: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     """(B, H, W) grayscale stack (uint8 or float32 in [0, 255]) → Keypoints
     with leading dim B and capacity cfg.max_keypoints.

@@ -1,8 +1,10 @@
-"""RGB-D tracking of a batch of frames: depth gate → match to the previous
-frame → F-RANSAC → PnP → motion gate → pose chain → keyframe policy →
-keyframe payload.
+"""RGB-D tracking: depth gate → match to the previous frame → F-RANSAC →
+PnP → motion gate → pose chain → keyframe policy → keyframe payload.
 
-Port of the reference package's ``frontend/tracker.py`` ``track_batch``:
+Port of the reference package's ``frontend/tracker.py``.  ``track_step``
+tracks one frame exactly as the reference's ``track_step`` (the anchored
+PnP runs unconditionally, and the pose chain composes the INVERSE of the
+frame-to-frame PnP transform).  ``track_batch``:
 every stage whose inputs do not depend on the previous frame's OUTPUT runs
 batched over the B frames (depth gating, matching, F-RANSAC, frame-to-frame
 PnP, the speculative keyframe-anchored PnP, payload selection), and a short
@@ -29,7 +31,7 @@ from dynamic_visual_slam_tpu_torch.core import camera as cam
 from dynamic_visual_slam_tpu_torch.core import containers, lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend import ransac
-from dynamic_visual_slam_tpu_torch.frontend.orb import Keypoints
+from dynamic_visual_slam_tpu_torch.frontend.orb import Keypoints, extract
 from dynamic_visual_slam_tpu_torch.ops import hamming
 
 # sampler(stage, frame_ids, n_hyp, sample_size, count) → (F, n_hyp, size)
@@ -167,6 +169,135 @@ def _pnp(cfg: SLAMConfig, k: Intrinsics, xyz, uv, mask, samples, prior_q,
         prior_t=prior_t, samples=samples)
 
 
+def track_step(cfg: SLAMConfig, state: TrackerState, gray: torch.Tensor,
+               depth_m: torch.Tensor, timestamp: torch.Tensor,
+               sampler: Sampler, det=None, filtered=None,
+               kps: Optional[Keypoints] = None
+               ) -> Tuple[TrackerState, TrackOutput]:
+    """One frame.  gray (H, W) uint8 or float32; depth_m (H, W) uint16
+    millimetres or float32 metres; timestamp () float32 sequence-relative
+    seconds.  det/filtered (optional) enable frontend semantic culling; kps
+    (optional) replaces the in-step extraction.  The RANSAC draws come from
+    ``sampler`` with this frame's index (stages "fm", "pnp", "anchor")."""
+    if depth_m.dtype == torch.uint16:
+        depth_m = depth_m.to(torch.float32) * 1e-3
+    elif depth_m.dtype != torch.float32:
+        depth_m = depth_m.to(torch.float32)
+    k = Intrinsics.from_config(cfg.camera)
+    ids = state.frame_idx.long()[None]
+    max_ham = float(cfg.match.max_hamming)
+
+    def draws(stage, n_hyp, size, valid):
+        return sampler(stage, ids, n_hyp, size, valid.sum()[None])[0]
+
+    # --- extraction + depth filter -----------------------------------------
+    if kps is None:
+        kps = extract(gray, cfg.orb)
+    z = _depth_at(depth_m, kps.uv)
+    mask = kps.mask & (z > cfg.depth.min_depth) & (z < cfg.depth.max_depth)
+    if det is not None and filtered is not None \
+            and cfg.semantic.cull_in_frontend:
+        drop_box = det.mask & filtered[det.category]
+        mask = mask & ~points_in_boxes(kps.uv, det.boxes, drop_box).any(1)
+    kps = kps._replace(mask=mask)
+    n_feat = mask.sum()
+    lost = n_feat == 0
+
+    # --- match current → previous, F-RANSAC ----------------------------------
+    m = hamming.match(kps.desc_bits, state.prev.desc_bits, kps.mask,
+                      state.prev.mask & state.has_prev, max_distance=max_ham)
+    n_match = m.valid.sum()
+    uv_prev = state.prev.uv[m.train_idx]
+    fm = ransac.fundamental_ransac(
+        uv_prev, kps.uv, m.valid, threshold=cfg.ransac.fm_threshold_px,
+        samples=draws("fm", cfg.ransac.fm_iterations, 8, m.valid))
+    fm_inlier = fm.inliers & fm.valid
+    n_inlier = fm_inlier.sum()
+
+    # --- PnP: previous-frame 3D → current pixels, constant-velocity prior ----
+    z_prev = state.prev_depth[m.train_idx]
+    pnp_ok = fm_inlier & (z_prev > cfg.depth.min_depth) & \
+        (z_prev <= cfg.depth.max_depth)
+    xyz_prev = cam.backproject(k, uv_prev, z_prev)
+    pnp = _pnp(cfg, k, xyz_prev, kps.uv, pnp_ok,
+               draws("pnp", cfg.ransac.pnp_iterations, 6, pnp_ok),
+               state.q_rel, state.t_rel)
+    q_inv, t_inv = lie.se3_inverse(pnp.q, pnp.t)
+    motion_ok = (torch.linalg.vector_norm(t_inv)
+                 <= cfg.motion.max_translation_m) & \
+        (torch.linalg.vector_norm(lie.so3_log(q_inv))
+         <= cfg.motion.max_rotation_rad)
+    accept = pnp.valid & motion_ok & state.has_prev & ~lost
+    # T_wc ← T_wc ∘ T_prev←curr
+    q_new, t_new = lie.se3_compose(state.q_wc, state.t_wc, q_inv, t_inv)
+    q_wc = torch.where(accept, q_new, state.q_wc)
+    t_wc = torch.where(accept, t_new, state.t_wc)
+
+    # --- keyframe policy match + anchored PnP (unconditional) ----------------
+    kf_m = hamming.match(kps.desc_bits, state.kf_desc_bits, kps.mask,
+                         state.kf_mask & state.has_kf, max_distance=max_ham)
+    n_kf_matches = kf_m.valid.sum()
+    tracked = accept
+    q_rel_eff, t_rel_eff = pnp.q, pnp.t
+    n_pnp_out = pnp.n_inliers
+    if cfg.tracking.anchor_to_keyframe:
+        q_pred_cw, t_pred_cw = lie.se3_inverse(q_wc, t_wc)
+        anc_ok = kf_m.valid & state.has_kf
+        kfa = _pnp(cfg, k, state.kf_xyz_w[kf_m.train_idx], kps.uv, anc_ok,
+                   draws("anchor", cfg.ransac.pnp_iterations, 6, anc_ok),
+                   q_pred_cw, t_pred_cw)
+        q_abs, t_abs = lie.se3_inverse(kfa.q, kfa.t)
+        dphi = lie.so3_log(lie.quat_mul(q_abs, lie.quat_conj(q_wc)))
+        use_anchor = state.has_kf & kfa.valid & ~lost \
+            & (kfa.n_inliers >= cfg.tracking.anchor_min_inliers) \
+            & (torch.linalg.vector_norm(t_abs - t_wc)
+               <= cfg.tracking.anchor_max_jump_m) \
+            & (torch.linalg.vector_norm(dphi)
+               <= cfg.tracking.anchor_max_jump_rad)
+        q_wc = torch.where(use_anchor, q_abs, q_wc)
+        t_wc = torch.where(use_anchor, t_abs, t_wc)
+        tracked = accept | use_anchor
+        q_rel_eff, t_rel_eff = lie.se3_compose(
+            *lie.se3_inverse(q_wc, t_wc), state.q_wc, state.t_wc)
+        n_pnp_out = torch.where(use_anchor, kfa.n_inliers, pnp.n_inliers)
+    is_kf = (~state.has_kf) | \
+        (n_kf_matches < cfg.keyframe.min_matches_to_last_kf) | \
+        (state.frames_since_kf >= cfg.keyframe.max_frames_between_kf)
+    is_kf = is_kf & ~lost & (tracked | (~state.has_prev & ~state.has_kf))
+
+    # --- keyframe payload: culled features + world positions -----------------
+    keep = _select_keyframe_features(cfg, kps, fm_inlier)
+    keep = torch.where(state.has_prev, keep, kps.mask)
+    cap = cfg.map.max_obs_per_keyframe
+    sel = containers.topk_mask_int(kps.response, keep, cap)
+    sel_idx = containers.stable_partition(sel)[:cap]
+    xyz_c = cam.backproject(k, kps.uv[sel_idx], z[sel_idx])
+    kf_block = KeyframeBlock(
+        q_wc=q_wc, t_wc=t_wc, uv=kps.uv[sel_idx],
+        xyz_w=cam.camera_to_world(q_wc, t_wc, xyz_c),
+        desc_bits=kps.desc_bits[sel_idx], desc_packed=kps.desc_packed[sel_idx],
+        response=kps.response[sel_idx], mask=sel[sel_idx],
+        frame_idx=state.frame_idx, timestamp=timestamp)
+
+    new_state = TrackerState(
+        q_wc=q_wc, t_wc=t_wc, prev=kps, prev_depth=z, has_prev=~lost,
+        kf_desc_bits=torch.where(is_kf, kf_block.desc_bits,
+                                 state.kf_desc_bits),
+        kf_mask=torch.where(is_kf, kf_block.mask, state.kf_mask),
+        kf_xyz_w=torch.where(is_kf, kf_block.xyz_w, state.kf_xyz_w),
+        has_kf=state.has_kf | (is_kf & state.has_prev),
+        frames_since_kf=torch.where(is_kf, 0, state.frames_since_kf + 1
+                                    ).to(torch.int32),
+        frame_idx=(state.frame_idx + 1).to(torch.int32),
+        q_rel=torch.where(tracked, q_rel_eff, state.q_rel),
+        t_rel=torch.where(tracked, t_rel_eff, state.t_rel))
+    out = TrackOutput(
+        q_wc=q_wc, t_wc=t_wc, tracking_ok=tracked, n_features=n_feat,
+        n_matches=n_match, n_inliers=n_inlier, n_pnp_inliers=n_pnp_out,
+        is_keyframe=is_kf, keyframe=kf_block)
+    return new_state, out
+
+
 def track_batch(cfg: SLAMConfig, state: TrackerState, kps_b: Keypoints,
                 depths: torch.Tensor, timestamps: torch.Tensor,
                 sampler: Sampler, dets=None, filtered=None
@@ -299,9 +430,9 @@ def track_batch(cfg: SLAMConfig, state: TrackerState, kps_b: Keypoints,
     for i in range(b):
         q_wc0, t_wc0 = q_wc, t_wc
         # composes the PnP transform itself (prev→curr), as the reference's
-        # track_batch scan does (its xs carry pnp.q/pnp.t); the reference's
-        # per-frame track_step composes the inverse.  Kept for parity and
-        # recorded in ROADMAP.md §C.
+        # track_batch scan does (its xs carry pnp.q/pnp.t), where its
+        # per-frame track_step (and ours) composes the inverse; each port
+        # follows its reference function (ROADMAP.md §C)
         q_new, t_new = lie.se3_compose(q_wc0, t_wc0, pnp.q[i], pnp.t[i])
         q_wc = torch.where(accept_pnp[i], q_new, q_wc0)
         t_wc = torch.where(accept_pnp[i], t_new, t_wc0)

@@ -144,3 +144,18 @@ def generate_sequence(camera: CameraConfig, n_frames: int, seed: int = 0,
             depth = depth * (1.0 + rng.normal(size=depth.shape) * depth_noise
                              ).astype(np.float32)
         yield gray, depth, r, t, i / 30.0
+
+
+def loop_trajectory(n_frames: int, radius: float = 0.35
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Closed orbit that returns to the start: one smooth x/z ellipse with
+    a small vertical bob, identity orientation, so the last frames see the
+    view of frame 0 (the revisit fixture for loop closure)."""
+    poses = []
+    for i in range(n_frames):
+        th = 2.0 * np.pi * i / max(n_frames - 1, 1)
+        t = np.array([radius * np.sin(th),
+                      0.05 * np.sin(2.0 * th),
+                      0.12 * (1.0 - np.cos(th))])
+        poses.append((np.eye(3), t))
+    return poses

@@ -1,4 +1,4 @@
-"""FAST-9/16 corner score — the plain PyTorch version of kernel B1.
+"""FAST-9/16 corner score — the plain PyTorch version of kernels B1 and B3.
 
 score(p) = the largest threshold t at which p is still a FAST-9 corner
 (OpenCV's cornerScore), so "detected at threshold t ⇔ score > t" and one
@@ -8,6 +8,11 @@ score map serves the reference's FAST(20) → FAST(7) per-cell fallback.
 tensors, and what ``chip_smoke.py`` holds the CUDA kernel
 (``csrc/fast_score.cu``) against on the card: min, max and the integer
 differences are exact, so the two agree bit for bit.
+
+``corner_score_auto`` is kernel B3, the port of the reference's
+``corner_score_pallas`` (one (H, W) f32 image): on a CUDA tensor it launches
+B1's kernel on a table of one level and one frame, counted under
+``"corner_score"``; on a CPU tensor it computes ``corner_score``.
 """
 
 from __future__ import annotations
@@ -48,3 +53,20 @@ def corner_score(img: torch.Tensor) -> torch.Tensor:
     bright = torch.amax(_windowed_min9(d), dim=0)
     dark = torch.amax(_windowed_min9(-d), dim=0)
     return torch.maximum(bright, dark)
+
+
+B3_COUNTER = "corner_score"
+
+
+def corner_score_auto(img: torch.Tensor) -> torch.Tensor:
+    """FAST-9 score map of one (H, W) image (any real dtype, scored in
+    float32; fractional values are kept).  CPU tensor → ``corner_score``;
+    CUDA tensor → the CUDA kernel (``csrc/fast_score.cu``) or an error."""
+    if img.ndim != 2:
+        raise ValueError(f"corner_score_auto: expected (H, W), got "
+                         f"{tuple(img.shape)}")
+    if img.device.type == "cpu":
+        return corner_score(img)
+    from dynamic_visual_slam_tpu_torch.ops.fields import fast_score_batch
+    level = img.to(torch.float32).contiguous()[None]
+    return fast_score_batch([level], counter=B3_COUNTER)[0][0]

@@ -19,11 +19,14 @@ from dynamic_visual_slam_tpu_torch.ops.fast import corner_score
 KERNEL = "fast_score"
 
 
-def fast_score_batch(levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def fast_score_batch(levels: Sequence[torch.Tensor],
+                     counter: str = KERNEL) -> List[torch.Tensor]:
     """FAST-9 score maps for B frames' full pyramids.
 
     levels: per pyramid level a (B, H_l, W_l) float32 contiguous tensor, all
-    on one device.  → per level a (B, H_l, W_l) float32 score tensor."""
+    on one device.  → per level a (B, H_l, W_l) float32 score tensor.
+    counter: the ``kernels.launches`` key a launch counts under (kernel B3,
+    ``ops/fast.corner_score_auto``, launches the same kernel on one level)."""
     if not levels:
         raise ValueError("fast_score_batch: no levels")
     dev = levels[0].device
@@ -53,5 +56,5 @@ def fast_score_batch(levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
                     ctypes.cast(ws, ctypes.c_void_p),
                     len(levels), b, stream)
     kernels.check(KERNEL, status)
-    kernels.launches[KERNEL] += 1
+    kernels.launches[counter] += 1
     return outs

@@ -1,13 +1,22 @@
 """PyTorch port vs the JAX reference: ops/image, ops/fast (plain version of
-kernel B1), ops/fields, ops/descriptors (plain version of kernel B2),
-ops/hamming and frontend/orb, on synthetic 320x240 frames made from a seed.
+kernels B1 and B3), ops/fields, ops/descriptors (plain version of kernel
+B2), ops/hamming and frontend/orb, on synthetic 320x240 frames made from a
+seed.
 
 Tolerances, and why:
 - pyramid levels and rounded blurs: the reference's jitted XLA program may
   contract the bilinear/blur sums differently, and the rounding after them
   can then move a pixel on a .5 boundary by one.  Mismatches are counted and
   printed; at most 1e-4 of the pixels, each off by exactly 1.
-- FAST scores, detections, keypoint sets fed the same levels: exact.
+- FAST scores, detections, keypoint sets fed the same levels: exact;
+  ``corner_score_auto`` (kernel B3's wrapper, plain path on the CPU) equals
+  the reference's (its XLA path off the TPU) bit for bit on integer and
+  fractional images, odd shapes included;
+- ``extract`` of one frame from its own pyramid: keypoint sets exact on
+  this frame; the pyramid pixels off by one (above) move some IC moments,
+  so angles agree within 1e-5 rad except on at most 2 % of the keypoints
+  (within 5e-3 rad there), and descriptor bits within the same 1e-3 as
+  below;
 - IC moments: exact (integer sums below 2^24).  Angles: 1e-5 rad (atan2 of
   the same moments in two libraries).  Descriptor bits: >= 99.9 % equal —
   the reference's CPU path rotates the pattern by cos/sin(atan2(m01, m10)),
@@ -241,3 +250,48 @@ def test_hamming_exact():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
+
+@pytest.mark.parametrize("shape", [(7, 9), (120, 160), (479, 641)])
+@pytest.mark.parametrize("fractional", [False, True])
+def test_corner_score_auto_exact(shape, fractional):
+    rng = np.random.default_rng(shape[0] + 10 * fractional)
+    img = rng.integers(0, 256, shape).astype(np.float32)
+    if fractional:
+        img = img + rng.random(shape).astype(np.float32)
+    got = pfast.corner_score_auto(_t(img))
+    want = np.asarray(jfast.corner_score_auto(jnp.asarray(img)))
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # a uint8 image is scored as float32, as in the reference
+    np.testing.assert_array_equal(
+        pfast.corner_score_auto(_t(img.astype(np.uint8))).numpy(),
+        np.asarray(jfast.corner_score_auto(jnp.asarray(img.astype(np.uint8)))))
+
+
+def test_corner_score_auto_checks_its_input():
+    with pytest.raises(ValueError):
+        pfast.corner_score_auto(torch.zeros((2, 8, 8)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pfast.corner_score_auto(torch.zeros((8, 8), device="meta"))
+
+
+def test_extract_one_frame_matches_reference(frames):
+    got = porb.extract(_t(frames[1]), PCFG)
+    want = jax.jit(lambda x: jorb.extract(x, CFG))(jnp.asarray(frames[1]))
+    for name in ("uv", "octave", "response", "mask"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), name)
+    m = np.asarray(want.mask)
+    assert m.sum() > 700
+    dang = np.abs(got.angle.numpy()[m] - np.asarray(want.angle)[m])
+    dang = np.minimum(dang, 2 * np.pi - dang)
+    flips = int((got.desc_bits.numpy()[m]
+                 != np.asarray(want.desc_bits)[m]).sum())
+    print(f"extract (one frame): {int((dang > 1e-5).sum())} of {m.sum()} "
+          f"angles off by up to {dang.max():.2e} rad; descriptor bit flips "
+          f"{flips} of {m.sum() * 256}")
+    assert (dang > 1e-5).sum() <= 0.02 * m.sum() and dang.max() < 5e-3
+    assert flips <= 1e-3 * m.sum() * 256
+    batch = porb.extract_batch(_t(frames[1:2]), PCFG)
+    for a, b in zip(got, batch):
+        assert torch.equal(a, b[0])

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
 imports JAX or anything of the JAX package; its entry points default to the
 card and raise without one; its kernels are built without fast math; and its
-device stages (extraction, tracker, keyframe insert, BA) never read a value
+device stages (extraction, both trackers, keyframe insert, BA, BoW add and
+query, loop verification, the pose-graph loop correction) never read a value
 back to the host nor build a tensor from host data, either of which makes
 the host wait for the card (tests/test_torch_kernels_cuda.py checks the same
 on the card with torch's sync debug mode)."""
@@ -24,7 +25,9 @@ from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fields
+from dynamic_visual_slam_tpu_torch.pipeline import slam as pslam
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
+from dynamic_visual_slam_tpu_torch.place import bow
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
 
 torch.set_num_threads(2)
@@ -55,6 +58,9 @@ def _imported_top_level(path: Path):
 def test_no_jax_or_reference_imports():
     files = _port_files()
     assert len(files) > 20
+    for new in ("place/bow.py", "backend/pose_graph.py", "io/synthetic.py",
+                "convert.py", "pipeline/slam.py"):
+        assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
            for f in files}
@@ -99,6 +105,7 @@ def test_kernel_build_flags():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
+    # kernel B3 (ops/fast.corner_score_auto) launches B1's source
     assert sorted(kernels.SOURCES) == ["fast_score", "orb_desc_moments"]
     for src in kernels.SOURCES.values():
         text = (kernels.CSRC / src).read_text()
@@ -169,12 +176,17 @@ def stage_inputs():
     state = mapping.init_map(cfg, "cpu")
     for kf in blocks[:-1]:
         state, _ = mapping.insert_keyframe(cfg, state, kf, det, filt)
+    db = bow.Database(bow.load_vocabulary(
+        str(ROOT / "assets" / "orbvoc_synth.npz"), "cpu"), capacity=16)
+    db.add(blocks[0].desc_bits, blocks[0].mask)
     return dict(cfg=cfg, grays=grays, depths=depths, stamps=stamps, kps=kps,
-                sampler=sampler, det=det, filt=filt, block=blocks[-1],
-                state=state)
+                sampler=sampler, det=det, filt=filt, blocks=blocks,
+                block=blocks[-1], state=state, db=db,
+                tstate=tracker.init_state(cfg, "cpu"))
 
 
-@pytest.mark.parametrize("stage", ["extract", "track", "insert", "ba"])
+@pytest.mark.parametrize("stage", ["extract", "track", "insert", "ba",
+                                   "track_step", "bow", "verify", "pgo"])
 def test_device_stages_make_no_host_round_trip(stage_inputs, stage):
     x = stage_inputs
     cfg = x["cfg"]
@@ -190,9 +202,29 @@ def test_device_stages_make_no_host_round_trip(stage_inputs, stage):
             state, _ = mapping.insert_keyframe(cfg, x["state"], x["block"],
                                                x["det"], x["filt"])
             out = state.landmarks.active
-        else:
+        elif stage == "ba":
             state, _ = ba.run_ba(cfg, Intrinsics.from_config(cfg.camera),
                                  x["state"])
             out = mapping.prune(cfg, state.landmarks,
                                 x["stamps"][-1]).active
+        elif stage == "track_step":
+            _, res = tracker.track_step(
+                cfg, x["tstate"], x["grays"][0], x["depths"][0],
+                x["stamps"][0], x["sampler"])
+            out = res.keyframe.mask
+        elif stage == "bow":
+            b = x["block"]
+            x["db"].add(b.desc_bits, b.mask)
+            out = x["db"].query(b.desc_bits, b.mask, top_k=4).valid
+        else:
+            a, b = x["blocks"][-1], x["blocks"][-3]
+            k = Intrinsics.from_config(cfg.camera)
+            n_inl, q, t, _ = pslam.verify_loop(
+                cfg, k, a.desc_bits, a.uv, a.mask, b.desc_bits, b.uv, b.mask,
+                b.xyz_w, 7)
+            out = n_inl > 0
+            if stage == "pgo":
+                _, state = pslam.apply_loop_pgo(cfg, x["tstate"], x["state"],
+                                                q, t, 2, 5)
+                out = state.keyframes.active
     assert out.any()

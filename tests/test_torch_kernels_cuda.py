@@ -8,10 +8,13 @@ the port (no JAX), so it also runs where JAX is not installed:
         tests/test_torch_kernels_cuda.py
 
 Tolerance: none.  Scores, moments and descriptor bits are exact in both
-versions (integer-valued inputs; the descriptor angle arithmetic is rounded
-identically), so the kernels must equal the plain versions bit for bit.
+versions (min, max and differences of float32 values; integer-valued
+moments; the descriptor angle arithmetic is rounded identically), so the
+kernels must equal the plain versions bit for bit.
 ``chip_smoke.py`` repeats the comparison at the main path's 720p shapes.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +29,8 @@ from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
+from dynamic_visual_slam_tpu_torch.pipeline import slam
+from dynamic_visual_slam_tpu_torch.place import bow
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
 
 torch.set_num_threads(2)
@@ -61,6 +66,34 @@ def test_fast_score_matches_corner_score(frames):
     assert kernels.launches["fast_score"] == before + 1
     for g, lv in zip(got, levels):
         assert torch.equal(g, fast.corner_score(lv))
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7, 9), (479, 641), (720, 1280)])
+@pytest.mark.parametrize("fractional", [False, True])
+def test_corner_score_auto_matches_corner_score(card, shape, fractional):
+    """Kernel B3: one (H, W) image, the tile grid's ragged edges included,
+    integer-valued or fractional float32."""
+    rng = np.random.default_rng(shape[0])
+    img = rng.integers(0, 256, shape).astype(np.float32)
+    if fractional:
+        img += rng.random(shape).astype(np.float32)
+    x = torch.from_numpy(img).to(card)
+    before = dict(kernels.launches)
+    got = fast.corner_score_auto(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["corner_score"] == \
+        before.get("corner_score", 0) + 1
+    assert kernels.launches["fast_score"] == before.get("fast_score", 0)
+    assert torch.equal(got, fast.corner_score(x))
+    assert torch.equal(got.cpu(), fast.corner_score_auto(x.cpu()))
 
 
 @pytest.mark.cuda
@@ -99,8 +132,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(frames):
 
 @pytest.mark.cuda
 def test_device_stages_do_not_synchronise(sequence):
-    """Extraction, tracker, keyframe insert and BA on the card with torch's
-    sync debug mode set to raise: none of them waits for the device."""
+    """Extraction, both trackers, keyframe insert, BA, BoW add and query,
+    loop verification and the pose-graph loop correction on the card with
+    torch's sync debug mode set to raise: none of them waits for the
+    device."""
     dev = torch.device("cuda")
     cfg = SLAMConfig().replace(camera=CAM)
     grays, depths = (t.to(dev) for t in sequence)
@@ -112,14 +147,27 @@ def test_device_stages_do_not_synchronise(sequence):
         torch.Generator(device=dev).manual_seed(0))
     state0, map0 = tracker.init_state(cfg, dev), mapping.init_map(cfg, dev)
 
+    vocab = Path(__file__).resolve().parent.parent / "assets" \
+        / "orbvoc_synth.npz"
+    db = bow.Database(bow.load_vocabulary(str(vocab), dev), capacity=16)
+
     def run():
         kps = orb.extract_batch(grays, cfg.orb)
         _, out = tracker.track_batch(cfg, state0, kps, depths, stamps,
                                      sampler)
+        tracker.track_step(cfg, state0, grays[0], depths[0], stamps[0],
+                           sampler)
         state = map0
-        for i in range(len(grays)):
-            kf = tracker.KeyframeBlock(*(a[i] for a in out.keyframe))
+        blocks = [tracker.KeyframeBlock(*(a[i] for a in out.keyframe))
+                  for i in range(len(grays))]
+        for kf in blocks:
             state, _ = mapping.insert_keyframe(cfg, state, kf, det, filt)
+        a, b = blocks[-1], blocks[0]
+        db.add(b.desc_bits, b.mask)
+        db.query(a.desc_bits, a.mask, top_k=4)
+        _, q, t, _ = slam.verify_loop(cfg, k, a.desc_bits, a.uv, a.mask,
+                                      b.desc_bits, b.uv, b.mask, b.xyz_w, 7)
+        slam.apply_loop_pgo(cfg, state0, state, q, t, 0, 3)
         state, res = ba.run_ba(cfg, k, state)
         return mapping.prune(cfg, state.landmarks, stamps[-1]), res
 

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX reference: the whole slice,
 ``SLAMSystem.process_batch`` (ORB → tracker → keyframe inserts → periodic BA
 with tracker feedback), on the pipeline fixture of tests/test_pipeline.py
-(320x240, 70 frames, seed 11), in batches of 7, place recognition off.
+(320x240, 70 frames, seed 11), in batches of 7, place recognition off;
+and its return cadence (``sync_every`` 1 and 2) against the reference's.
 
 Both systems see the same frames and the same RANSAC draws (the port gets
 the reference's own threefry samples through ``sampler=``).
@@ -49,14 +50,14 @@ def runs():
     stamps = np.asarray([f[4] for f in seq])
     gt = np.stack([f[3] for f in seq])
     ref = JaxSLAM(CFG, ba_async=False, enable_place_recognition=False)
-    port = SLAMSystem(PCFG, ba_async=False, device="cpu",
-                      sampler=JaxSampler(N_FRAMES))
+    port = SLAMSystem(PCFG, ba_async=False, enable_place_recognition=False,
+                      device="cpu", sampler=JaxSampler(N_FRAMES))
     returned = []
     for i in range(0, N_FRAMES, B):
         sl = slice(i, i + B)
-        ref.process_batch(grays[sl], depths[sl], stamps[sl])
-        returned.append(len(port.process_batch(grays[sl], depths[sl],
-                                               stamps[sl])))
+        returned.append((
+            len(port.process_batch(grays[sl], depths[sl], stamps[sl])),
+            len(ref.process_batch(grays[sl], depths[sl], stamps[sl]))))
     ref.finalize()
     port.finalize()
     return ref, port, gt, returned
@@ -64,7 +65,9 @@ def runs():
 
 def test_port_meets_pipeline_bounds(runs):
     _, port, gt, returned = runs
-    assert returned == [B] * (N_FRAMES // B)   # this batch's results
+    # the reference's cadence: each call returns the previous batch
+    assert [p for p, _ in returned] == [j for _, j in returned] \
+        == [0] + [B] * (N_FRAMES // B - 1)
     assert port.stats["frames"] == N_FRAMES
     assert 2 <= port.stats["keyframes"] < N_FRAMES
     assert port.stats["ba_runs"] >= 1
@@ -120,3 +123,32 @@ def test_ba_and_map_match_reference(runs):
     n_port = len(port.landmarks_world()["xyz"])
     n_ref = len(ref.landmarks_world()["xyz"])
     assert n_port == pytest.approx(n_ref, rel=0.02), (n_port, n_ref)
+
+
+@pytest.mark.parametrize("sync_every", [1, 2])
+def test_return_cadence_matches_reference(sync_every):
+    """Which frames each process_batch call returns, and after finalize()
+    the whole trajectory in order, as the reference's on its cadence."""
+    seq = list(synthetic.generate_sequence(CAM, 5 * B, seed=11,
+                                           depth_noise=0.004))
+    grays = np.stack([f[0] for f in seq]).astype(np.uint8)
+    depths = (np.stack([f[1] for f in seq]) * 1000.0).astype(np.uint16)
+    stamps = np.asarray([f[4] for f in seq])
+    kw = dict(ba_async=False, enable_place_recognition=False,
+              sync_every=sync_every)
+    ref = JaxSLAM(CFG, **kw)
+    port = SLAMSystem(PCFG, device="cpu", **kw)
+    got, want = [], []
+    for i in range(0, len(seq), B):
+        sl = slice(i, i + B)
+        got.append([f.timestamp for f in port.process_batch(
+            grays[sl], depths[sl], stamps[sl])])
+        want.append([f.timestamp for f in ref.process_batch(
+            grays[sl], depths[sl], stamps[sl])])
+    assert got == want
+    assert [len(g) for g in got] == ([0, 7, 7, 7, 7] if sync_every == 1
+                                     else [0, 0, 14, 0, 14])
+    port.finalize()
+    ref.finalize()
+    assert [f.timestamp for f in port.trajectory] == \
+        [f.timestamp for f in ref.trajectory] == list(stamps)

@@ -23,6 +23,20 @@ def to_numpy_tree(nt):
     return np.asarray(nt)
 
 
+def from_numpy_tree(template, d):
+    """dict of numpy arrays (nested) → a JAX NamedTuple shaped like
+    ``template``; the template's PRNG keys (the tracker's rng) are kept."""
+    vals = {}
+    for name, t in template._asdict().items():
+        if hasattr(t, "_asdict"):
+            vals[name] = from_numpy_tree(t, d[name])
+        elif jnp.issubdtype(t.dtype, jax.dtypes.prng_key):
+            vals[name] = t
+        else:
+            vals[name] = jnp.asarray(d[name], t.dtype)
+    return type(template)(**vals)
+
+
 @functools.lru_cache(maxsize=None)
 def _jitted_sample(n_hyp: int, size: int):
     return jax.jit(lambda key, count: jax_ransac._sample_indices(
@@ -32,7 +46,10 @@ def _jitted_sample(n_hyp: int, size: int):
 class JaxSampler:
     """tracker.Sampler returning the reference's own minimal sets: frame f's
     (F-RANSAC, PnP, anchor) keys are the f-th split of the reference
-    tracker's key chain, which starts at jax.random.key(0)."""
+    tracker's key chain, which starts at jax.random.key(0).  The geometric
+    verification of the place chain keys its F-RANSAC with
+    jax.random.key(seed) and its PnP with fold_in(that key, 1) (stages
+    "loop_fm" and "loop_pnp", the seed passed as the frame id)."""
 
     def __init__(self, n_frames: int, start=None):
         r = jax.random.key(0) if start is None else start
@@ -47,7 +64,14 @@ class JaxSampler:
     def __call__(self, stage, frame_ids, n_hyp, size, count):
         self.calls += 1
         fn = _jitted_sample(n_hyp, size)
-        out = [np.asarray(fn(self.keys[stage][f], jnp.asarray(c, jnp.int32)))
+        out = [np.asarray(fn(self._key(stage, f), jnp.asarray(c, jnp.int32)))
                for f, c in zip(frame_ids.tolist(), count.tolist())]
         return torch.as_tensor(np.stack(out), dtype=torch.int64,
                                device=count.device)
+
+    def _key(self, stage, f):
+        if stage == "loop_fm":
+            return jax.random.key(f)
+        if stage == "loop_pnp":
+            return jax.random.fold_in(jax.random.key(f), 1)
+        return self.keys[stage][f]
