@@ -9,8 +9,9 @@ Phases (one JSON line each, prefixed "phase"):
   kernels  each kernel against its plain PyTorch version on the card at the
            main path's shapes (720p, batch 24, 8 levels, 1024 keypoints a
            frame; kernel B3 on one 1280x720 frame, and on a 479x641 frame
-           and fractional input): results must be identical; times by CUDA
-           events;
+           and fractional input): results must be identical; device times
+           by CUDA events; bounds from bytes and instruction counts at the
+           rates scripts/issue_rates.py measured (ISSUE_RATES);
   small    the slice at 320x240 (the repository's pipeline fixture) on the
            card: extraction identical to the CPU plain path, ATE within the
            fixture's bound, BA fired and improved its cost;
@@ -62,15 +63,27 @@ from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-# single f32 instructions (add, sub, min, max, mul) issue at most once per
-# lane per clock: 132 SMs x 128 lanes x 1.98 GHz boost (H100 SXM), which is
-# half the data sheet's 67 TFLOP/s, since that counts an FMA as two
-F32_INSTR_PER_S = 132 * 128 * 1.98e9
-# FAST-9 score (kernels B1, B3), f32 operations a pixel, counted in
-# csrc/fast_score.cu: 16 differences; for bright and for dark 3 x 16 min/max
-# of the log-step window tree + 1 + 15 x 2 over the arcs (79 each); one
-# negation and one max
-FAST_OPS_PER_PX = 16 + 2 * 79 + 2
+# Kernel B1's (and B3's) instructions a pixel, by class, counted in
+# csrc/fast_score.cu.  A tile whose pixels are all integers in [0, 255]
+# (every level of the main path) takes the packed branch: two pixels share
+# each min/max, 2 x 25 two-input and 2 x 11 three-input (DPX) over the arcs
+# (arc_extreme) and the score's max.s16x2 a pair; the score's bias (OR),
+# subtraction and unpacking permute are 3 integer instructions a pixel, and
+# 1 add makes it a float again.  Any other tile takes the f32 branch:
+# 2 x 47 + 1 min/max and 2 subtractions a pixel.
+FAST_INSTR_PER_PX = {"min_s16x2": 51 / 2, "min3_s16x2": 22 / 2, "int32": 3,
+                     "fadd": 1}
+FAST_F32_INSTR_PER_PX = {"fmin": 2 * 47 + 1, "fadd": 2}
+# Instructions a second of each class (one lane's instruction counted once)
+# on an NVIDIA H100 80GB HBM3 at 700 W, from one run of
+# scripts/issue_rates.py (PERF.md §6 has it): min/max of every kind and
+# 32-bit logic issue at half the f32 add rate, so they are counted on one
+# pipe.
+ISSUE_RATES = {"fmin": 1.6668e13, "fadd": 3.2570e13, "min_s16x2": 1.6685e13,
+               "int32": 1.6669e13, "min3_s16x2": 1.6100e13}
+PIPE = {"fmin": "alu", "min_s16x2": "alu", "min3_s16x2": "alu",
+        "int32": "alu", "fadd": "fma"}
+HIDE_HOST_CYCLES = 40_000_000  # cuda_ms's wait: about 20 ms at 1.98 GHz
 BATCH = 24
 WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA round
 TIMED_BATCHES = 10             # 240 frames, BA fires on its 2 s tick
@@ -92,12 +105,18 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 7) -> float:
-    """Median milliseconds of fn() by CUDA events (after one warm call)."""
+    """Median device milliseconds of fn() by CUDA events (after one warm
+    call).  Each timed call is queued behind a device-side wait of about
+    20 ms (``HIDE_HOST_CYCLES``), so the host's part of the call (argument
+    checks, building the launch) runs while the card waits and the events
+    bracket device work only; without it a call that launches one short
+    kernel is timed at its wrapper's host cost."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HIDE_HOST_CYCLES)
         a.record()
         fn()
         b.record()
@@ -106,9 +125,16 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_instr: float):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_instr / F32_INSTR_PER_S
+def bound(n_bytes: float, n_instr: dict):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    from the bytes moved and the instructions of each class (``n_instr``)
+    at that class's measured rate (``ISSUE_RATES``, instructions a second);
+    the classes of one pipe add up, the pipes run side by side."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    per_pipe = collections.Counter()
+    for c, n in n_instr.items():
+        per_pipe[PIPE[c]] += n / ISSUE_RATES[c]
+    t_ops = max(per_pipe.values())
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -160,6 +186,15 @@ def phase_kernels(frames, cfg: SLAMConfig):
         imgs, cfg.orb.n_levels, cfg.orb.scale_factor)]
     n_px = sum(lv.numel() for lv in levels)
 
+    def fast_instr(imgs):
+        """B1's instructions for these images: the packed branch's counts
+        where every pixel is a byte (no tile then takes the f32 branch)."""
+        per_px = FAST_INSTR_PER_PX if all(
+            bool(((x >= 0) & (x <= 255) & (x == torch.round(x))).all())
+            for x in imgs) else FAST_F32_INSTR_PER_PX
+        n = sum(x.numel() for x in imgs)
+        return {c: k * n for c, k in per_px.items()}
+
     # --- B1: FAST scores of all B x 8 levels -------------------------------
     got = fields.fast_score_batch(levels)
     want = [fast.corner_score(lv) for lv in levels]
@@ -170,7 +205,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
     b1_ms = cuda_ms(lambda: fields.fast_score_batch(levels))
     b1_plain = cuda_ms(lambda: [fast.corner_score(lv) for lv in levels])
     # one f32 read + one f32 written a pixel
-    b1_bound, b1_by = bound(8 * n_px, FAST_OPS_PER_PX * n_px)
+    b1_bound, b1_by = bound(8 * n_px, fast_instr(levels))
 
     # --- B3: FAST scores of one frame (corner_score_auto) ------------------
     img = imgs[0].contiguous()
@@ -192,7 +227,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
                  f"max abs {err}")
     b3_ms = cuda_ms(lambda: fast.corner_score_auto(img))
     b3_plain = cuda_ms(lambda: fast.corner_score(img))
-    b3_bound, b3_by = bound(8 * img.numel(), FAST_OPS_PER_PX * img.numel())
+    b3_bound, b3_by = bound(8 * img.numel(), fast_instr([img]))
 
     # --- B2: moments + rBRIEF bits of all B x 1024 keypoint slots ----------
     _, inputs = orb.detect_batch(levels, got, cfg.orb)
@@ -212,10 +247,10 @@ def phase_kernels(frames, cfg: SLAMConfig):
     n_disc = len(descriptors._disc_offsets()[0])
     # per keypoint: the disc's raw pixels and the 512 blurred samples read
     # once, 16 bytes of (level, frame, y, x) read, 256 bits + 2 moments
-    # written; instructions (built with -fmad=false, so no FMA): 2 multiplies
-    # and 2 adds a disc pixel, ~8 a sample, 1 a bit
+    # written; f32 instructions (built with -fmad=false, so no FMA), at the
+    # add rate: 2 multiplies and 2 adds a disc pixel, ~8 a sample, 1 a bit
     b2_bound, b2_by = bound(n_kp * (4 * n_disc + 4 * 512 + 16 + 256 + 8),
-                            n_kp * (4 * n_disc + 8 * 512 + 256))
+                            {"fadd": n_kp * (4 * n_disc + 8 * 512 + 256)})
     rows = [
         dict(name="fast_score", route="cuda",
              source="dynamic_visual_slam_tpu_torch/csrc/fast_score.cu",
@@ -236,7 +271,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
              bound_ms=b3_bound, bound_by=b3_by, library_ms=None,
              shape="one 1280x720 frame (and 479x641, fractional)"),
     ]
-    emit("kernels", kernels=rows)
+    emit("kernels", kernels=rows, fast_instr=fast_instr(levels))
     return rows
 
 
@@ -518,7 +553,7 @@ def main() -> None:
         # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     emit("done", seconds=time.perf_counter() - T_START)
     print(smi_line)

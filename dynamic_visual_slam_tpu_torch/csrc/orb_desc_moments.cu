@@ -10,7 +10,8 @@
 //   c = m10 / sqrt(n2), s = m01 / sqrt(n2), n2 = m10^2 + m01^2  (c=1, s=0
 //         when n2 == 0);
 //   512 samples of the BLURRED level at (y + rint(px*s + py*c),
-//         x + rint(px*c - py*s)) for the orb_pattern offsets (px, py);
+//         x + rint(px*c - py*s)) for the orb_pattern offsets (px, py),
+//         clamped to the padded image;
 //   bit i = sample[i] < sample[256 + i].
 // Inputs are the per-level images reflect-padded by 19 px (SAMPLE_PAD), so a
 // keypoint's samples never leave its own padded image.  Pixel values are
@@ -20,35 +21,46 @@
 // -fmad=false) so that each product, sum, sqrt and quotient is rounded once,
 // exactly as the plain PyTorch version ops/descriptors.descriptors_moments_plain
 // rounds them.  Sample indices use __float2int_rn (round half to even, as
-// torch.round / jnp.round), never roundf.
+// torch.round / jnp.round), never roundf.  Bits, m10 and m01 equal the plain
+// version's.
 //
-// What bounds it on the H100: per keypoint it needs ~3.8 KB of raw disc and
-// 2 KB of blurred samples and writes 264 bytes; at 720p, B=24 (24,576
-// keypoints) that is ~0.15 GB, ~45 us at 3.35 TB/s.  The work per keypoint is
-// small and its loads are scattered, so in practice it is bound by load
-// latency, not by bandwidth or arithmetic.
+// What bounds it on the H100: per keypoint it needs the 749 raw disc pixels
+// and 512 blurred samples (5.0 KB) and writes 264 bytes, against a few
+// thousand instructions: at 720p, B = 24 (24,576 keypoint slots) 0.13 GB,
+// 39 us at 3.35 TB/s, so device memory bounds it.  Within a keypoint the
+// work is a chain of two dependent rounds of loads (the disc, then the
+// samples the moments point to), so the design keeps many keypoints in
+// flight and every load of a round issued at once.  The card moves 32-byte
+// sectors: a disc row spans 4 to 5 and the samples about 220, some 12 KB a
+// keypoint, more than the bound counts.
 //
-// Design: one warp per keypoint, four warps per block.  The warp stages the
-// 31x31 raw disc window and the 39x39 blurred window (+-19 px covers the
-// largest rotated offset, 18.4 px) in shared memory with lane-strided loads,
-// then lane v sums row v-15 of the disc (row sum and first moment) and the
-// moments are combined with warp shuffles; each lane then computes 16 of the
-// 512 rotated samples from shared memory and writes 8 bits.  The TPU
-// workarounds (bf16 atlases, (8,128)-aligned patch DMAs with residual
-// offsets, one-hot matmul sampling instead of gathers) are gone: a gather is
-// a plain indexed load here.
+// Design: persistent warps, one keypoint at a time, no shared memory.  Each
+// lane keeps its 16 pattern points (bits 8*lane .. 8*lane + 7, both points of
+// each pair) in 32 registers, loaded once; a warp walks keypoints with a
+// grid-wide stride.  Moments: lane j owns disc column dx = j - 15 and runs
+// over the 31 rows with the loads unrolled (all in flight at once), each row
+// one coalesced load of at most 31 floats masked to |dx| <= umax[|dy|]; the
+// column sum and sum of dy*I stay in registers, and m10 = sum dx*colsum and
+// m01 are reduced with __shfl_xor_sync.  Samples are gathered straight from
+// the blurred level (the reach is at most 18 px, so L1 serves a keypoint's
+// 512 samples), and each lane writes its 8 bits in one 8-byte store.
+// Occupancy is set by registers alone.  The TPU workarounds (bf16 atlases,
+// (8,128)-aligned patch DMAs with residual offsets, one-hot matmul sampling
+// instead of gathers) are gone: a gather is a plain indexed load here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "persistent.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 16;
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;            // warps a block
 constexpr int kPad = 19;             // SAMPLE_PAD of the padded level images
 constexpr int kHalfPatch = 15;       // IC disc radius
-constexpr int kBlurW = 2 * kPad + 1;         // 39
-constexpr int kRawW = 2 * kHalfPatch + 1;    // 31
+constexpr int kDisc = 2 * kHalfPatch + 1;    // 31 rows and columns
+constexpr int kBits = 8;             // descriptor bits a lane
 
 struct DescTable {
   const float* blur[kMaxLevels];
@@ -68,89 +80,89 @@ orb_desc_moments_kernel(const DescTable t, const int* __restrict__ kp_level,
                         int n_kp, uint8_t* __restrict__ bits,
                         float* __restrict__ m10_out,
                         float* __restrict__ m01_out) {
-  __shared__ float s_blur[kWarps][kBlurW][kBlurW];
-  __shared__ float s_raw[kWarps][kRawW][kRawW];
-
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int k = blockIdx.x * kWarps + warp;
-  if (k >= n_kp) return;   // whole warp leaves together; only __syncwarp below
-
-  const int lvl = min(max(kp_level[k], 0), t.n_levels - 1);
-  const int hp = t.hp[lvl];
-  const int wp = t.wp[lvl];
-  // keypoint (y, x) in level coordinates sits at (y + 19, x + 19) of the
-  // padded image; clamp so a bad coordinate cannot read out of bounds
-  const int y = min(max(kp_y[k], 0), hp - kBlurW);
-  const int x = min(max(kp_x[k], 0), wp - kBlurW);
-  const size_t frame_off = static_cast<size_t>(kp_frame[k]) * hp * wp;
-  const float* blur = t.blur[lvl] + frame_off;
-  const float* raw = t.raw[lvl] + frame_off;
-
-  for (int i = lane; i < kBlurW * kBlurW; i += 32) {
-    const int r = i / kBlurW;
-    const int c = i - r * kBlurW;
-    s_blur[warp][r][c] = __ldg(blur + static_cast<size_t>(y + r) * wp + x + c);
+  // this lane's pattern pairs: first points i, second points 256 + i
+  float ax[kBits], ay[kBits], bx[kBits], by[kBits];
+#pragma unroll
+  for (int j = 0; j < kBits; ++j) {
+    const int i = lane * kBits + j;
+    ax[j] = __ldg(pattern + i);
+    ay[j] = __ldg(pattern + 512 + i);
+    bx[j] = __ldg(pattern + 256 + i);
+    by[j] = __ldg(pattern + 512 + 256 + i);
   }
-  const int off = kPad - kHalfPatch;   // raw disc window starts 4 px in
-  for (int i = lane; i < kRawW * kRawW; i += 32) {
-    const int r = i / kRawW;
-    const int c = i - r * kRawW;
-    s_raw[warp][r][c] =
-        __ldg(raw + static_cast<size_t>(y + off + r) * wp + x + off + c);
+  // rows of the disc in this lane's column dx = lane - 15 (lane 31: none)
+  const int dx = lane - kHalfPatch;
+  unsigned rows = 0;
+#pragma unroll
+  for (int r = 0; r < kDisc; ++r) {
+    const int ady = r < kHalfPatch ? kHalfPatch - r : r - kHalfPatch;
+    if (lane < kDisc && abs(dx) <= t.umax[ady]) rows |= 1u << r;
   }
-  __syncwarp();
 
-  // --- IC moments: lane v sums disc row dy = v - 15 ---
-  float m10 = 0.0f, m01 = 0.0f;
-  if (lane < kRawW) {
-    const int dy = lane - kHalfPatch;
-    const int u = t.umax[dy < 0 ? -dy : dy];
-    float row_sum = 0.0f, row_moment = 0.0f;
-    for (int dx = -u; dx <= u; ++dx) {
-      const float v = s_raw[warp][lane][dx + kHalfPatch];
-      row_sum = __fadd_rn(row_sum, v);
-      row_moment = __fadd_rn(row_moment, __fmul_rn(static_cast<float>(dx), v));
+  const int warps = gridDim.x * kWarps;
+  for (int k = blockIdx.x * kWarps + threadIdx.x / 32; k < n_kp; k += warps) {
+    const int lvl = min(max(__ldg(kp_level + k), 0), t.n_levels - 1);
+    const int hp = t.hp[lvl];
+    const int wp = t.wp[lvl];
+    // keypoint (y, x) in level coordinates sits at (y + 19, x + 19) of the
+    // padded image; clamp so a bad coordinate cannot read out of bounds
+    const int y = min(max(__ldg(kp_y + k), 0), hp - 2 * kPad - 1);
+    const int x = min(max(__ldg(kp_x + k), 0), wp - 2 * kPad - 1);
+    const size_t frame_off = static_cast<size_t>(__ldg(kp_frame + k)) * hp * wp;
+    const float* blur = t.blur[lvl] + frame_off;
+    const float* raw = t.raw[lvl] + frame_off;
+
+    // --- IC moments: lane owns column dx, rows dy = -15 .. 15 ---
+    const float* col = raw + static_cast<size_t>(y + kPad - kHalfPatch) * wp +
+                       (x + kPad + dx);
+    float v[kDisc];
+#pragma unroll
+    for (int r = 0; r < kDisc; ++r)
+      v[r] = (rows >> r) & 1u ? __ldg(col + static_cast<size_t>(r) * wp) : 0.0f;
+    float colsum = 0.0f, colmom = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kDisc; ++r) {
+      colsum = __fadd_rn(colsum, v[r]);
+      colmom = __fadd_rn(colmom, __fmul_rn(static_cast<float>(r - kHalfPatch), v[r]));
     }
-    m01 = __fmul_rn(static_cast<float>(dy), row_sum);
-    m10 = row_moment;
-  }
+    float m10 = __fmul_rn(static_cast<float>(dx), colsum);
+    float m01 = colmom;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    m10 = __fadd_rn(m10, __shfl_xor_sync(0xffffffffu, m10, o));
-    m01 = __fadd_rn(m01, __shfl_xor_sync(0xffffffffu, m01, o));
-  }
+    for (int o = 16; o > 0; o >>= 1) {
+      m10 = __fadd_rn(m10, __shfl_xor_sync(0xffffffffu, m10, o));
+      m01 = __fadd_rn(m01, __shfl_xor_sync(0xffffffffu, m01, o));
+    }
 
-  // --- orientation: c = m10/|m|, s = m01/|m| (n2 > 0 guard) ---
-  const float n2 = __fadd_rn(__fmul_rn(m10, m10), __fmul_rn(m01, m01));
-  float cs = 1.0f, sn = 0.0f;
-  if (n2 > 0.0f) {
-    const float nrm = __fsqrt_rn(n2);
-    cs = __fdiv_rn(m10, nrm);
-    sn = __fdiv_rn(m01, nrm);
-  }
+    // --- orientation: c = m10/|m|, s = m01/|m| (n2 > 0 guard) ---
+    const float n2 = __fadd_rn(__fmul_rn(m10, m10), __fmul_rn(m01, m01));
+    float cs = 1.0f, sn = 0.0f;
+    if (n2 > 0.0f) {
+      const float nrm = __fsqrt_rn(n2);
+      cs = __fdiv_rn(m10, nrm);
+      sn = __fdiv_rn(m01, nrm);
+    }
 
-  // --- 512 rotated samples → 256 bits; lane handles bits 8*lane .. +7 ---
-  uint8_t* out = bits + static_cast<size_t>(k) * 256 + lane * 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float s2[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = h * 256 + lane * 8 + j;
-      const float px = __ldg(pattern + i);
-      const float py = __ldg(pattern + 512 + i);
+    // --- 16 rotated samples → 8 bits, clamped to the padded image ---
+    const int cy = y + kPad;
+    const int cx = x + kPad;
+    auto sample = [&](float px, float py) {
       const float fc = __fsub_rn(__fmul_rn(px, cs), __fmul_rn(py, sn));
       const float fr = __fadd_rn(__fmul_rn(px, sn), __fmul_rn(py, cs));
-      const int col = min(max(__float2int_rn(fc) + kPad, 0), kBlurW - 1);
-      const int row = min(max(__float2int_rn(fr) + kPad, 0), kBlurW - 1);
-      s2[h] = s_blur[warp][row][col];
+      const int r = min(max(cy + __float2int_rn(fr), 0), hp - 1);
+      const int c = min(max(cx + __float2int_rn(fc), 0), wp - 1);
+      return __ldg(blur + static_cast<size_t>(r) * wp + c);
+    };
+    unsigned long long word = 0;
+#pragma unroll
+    for (int j = 0; j < kBits; ++j)
+      word |= static_cast<unsigned long long>(sample(ax[j], ay[j]) < sample(bx[j], by[j]))
+              << (8 * j);
+    reinterpret_cast<unsigned long long*>(bits + static_cast<size_t>(k) * 256)[lane] = word;
+    if (lane == 0) {
+      m10_out[k] = m10;
+      m01_out[k] = m01;
     }
-    out[j] = s2[0] < s2[1] ? 1 : 0;
-  }
-  if (lane == 0) {
-    m10_out[k] = m10;
-    m01_out[k] = m01;
   }
 }
 
@@ -158,8 +170,8 @@ orb_desc_moments_kernel(const DescTable t, const int* __restrict__ kp_level,
 
 // blur_ptrs/raw_ptrs: n_levels device pointers to contiguous (batch, hp, wp)
 // float32 padded level images; hps/wps: their padded sizes; umax: 16 ints.
-// Keypoint arrays are int32 (n_kp,), pattern is float32 (1024,) on device.
-// Returns cudaGetLastError() after the launch.
+// Keypoint arrays are int32 (n_kp,), pattern is float32 (1024,) on device;
+// bits must be 8-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int orb_desc_moments(const void* blur_ptrs, const void* raw_ptrs,
                                 const void* hps, const void* wps,
                                 const void* umax, int n_levels,
@@ -169,6 +181,7 @@ extern "C" int orb_desc_moments(const void* blur_ptrs, const void* raw_ptrs,
                                 void* m01, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_kp < 0) return cudaErrorInvalidValue;
   if (n_kp == 0) return cudaSuccess;
+  if (reinterpret_cast<uintptr_t>(bits) % 8 != 0) return cudaErrorMisalignedAddress;
   DescTable t = {};
   t.n_levels = n_levels;
   for (int l = 0; l < n_levels; ++l) {
@@ -176,10 +189,13 @@ extern "C" int orb_desc_moments(const void* blur_ptrs, const void* raw_ptrs,
     t.raw[l] = static_cast<const float* const*>(raw_ptrs)[l];
     t.hp[l] = static_cast<const int*>(hps)[l];
     t.wp[l] = static_cast<const int*>(wps)[l];
-    if (t.hp[l] < kBlurW || t.wp[l] < kBlurW) return cudaErrorInvalidValue;
+    if (t.hp[l] < 2 * kPad + 1 || t.wp[l] < 2 * kPad + 1) return cudaErrorInvalidValue;
   }
   for (int i = 0; i <= kHalfPatch; ++i) t.umax[i] = static_cast<const int*>(umax)[i];
-  const unsigned blocks = static_cast<unsigned>((n_kp + kWarps - 1) / kWarps);
+  // persistent grid: as many blocks as fit on the SMs, at most one a keypoint
+  const int blocks = persistent_blocks(orb_desc_moments_kernel, kWarps * 32,
+                                       (static_cast<long long>(n_kp) + kWarps - 1) / kWarps);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   orb_desc_moments_kernel<<<blocks, kWarps * 32, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<const int*>(kp_level), static_cast<const int*>(kp_frame),

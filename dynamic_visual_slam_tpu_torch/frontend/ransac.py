@@ -6,6 +6,16 @@ refined, and degenerate inputs return valid=False.  Every function here
 also takes leading batch dims (frames of a batch), so one call estimates the
 geometry of all B frame pairs.
 
+Long reductions: the Gram matrix of the weighted 8-point solve and the
+Gauss-Newton normal equations of the PnP refinement sum hundreds of
+products.  They are accumulated in float64 and rounded once to float32, so
+the result does not depend on the order the CPU's vector ISA (AVX2,
+AVX-512) or the card sums in; in float32 that order moved the refined F by
+1.35e-4 and a PnP pose by 3.6 mm between two x86 hosts.  Everything else
+stays float32, as in the reference, the DLT's 12-row Gram included: in
+float64 it took the per-frame slice of tests/test_torch_perframe.py from
+25 to 50 mm off the reference up to frame 90.
+
 Sampling: the reference draws its minimal sets with threefry keys, which
 torch cannot reproduce.  ``sample_indices`` draws them from an explicit
 ``torch.Generator`` on the data's device; both estimators also accept the
@@ -86,7 +96,8 @@ def _eight_point_weighted(p1: torch.Tensor, p2: torch.Tensor,
     x2, y2 = n2[..., 0], n2[..., 1]
     a = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
                      torch.ones_like(x1)], -1) * w[..., None]
-    f = ls.smallest_eigvec(a.transpose(-1, -2) @ a).reshape(
+    a64 = a.to(torch.float64)          # Gram in float64, rounded once
+    f = ls.smallest_eigvec((a64.transpose(-1, -2) @ a64).to(a.dtype)).reshape(
         a.shape[:-2] + (3, 3))
     _, v = ls.eigh3x3(f.transpose(-1, -2) @ f)
     v3 = v[..., 0]
@@ -218,11 +229,12 @@ def _gauss_newton_refine(k: Intrinsics, q0, t0, xyz, uv, w, iters: int):
             torch.stack([-x2, zs, x0], -1),
             torch.stack([x1, -x0, zs], -1)], -2)                  # -[xc]×
         jtheta = jp @ skew
-        jfull = torch.cat([jtheta, jp], -1)                       # (..., K, 2, 6)
+        # [J | r] (..., K, 2, 7); one Gram in float64 gives JᵀWJ and JᵀWr
+        # (w is 0/1, so the weighting is exact in either precision)
+        jr = torch.cat([jtheta, jp, res[..., None]], -1).to(torch.float64)
         wk = (w * (x2 > 1e-6))[..., None, None]
-        jw = jfull * wk
-        h = torch.einsum("...kri,...krj->...ij", jw, jfull)
-        b = torch.einsum("...kri,...kr->...i", jw, res)
+        g = torch.einsum("...kri,...krj->...ij", jr * wk, jr).to(res.dtype)
+        h, b = g[..., :6, :6], g[..., :6, 6]
         dx = -ls.solve_psd(h, b, damping=1e-6)
         dq = lie.so3_exp(dx[..., :3])
         q_new = lie.quat_normalize(lie.quat_mul(dq, q))

@@ -15,6 +15,23 @@ once where the plain PyTorch versions round twice, which would flip the
 ``launches`` counts, per kernel, the launches made by the wrappers in
 ``ops/fields.py`` and ``ops/descriptors.py``; ``chip_smoke.py`` resets it
 before it drives the main path and reads it after.
+
+The kernels (each source's header note has the detail):
+
+- ``fast_score.cu`` (B1, and B3 on one level): replaces the reference's
+  ``ops/fields.py::_score_atlas_rows`` and ``ops/fast.py::corner_score_pallas``.
+  Bound by its min/max instructions, which run at half the f32 add rate.
+  A persistent grid stages 64x32 tiles with cheap index arithmetic. Where a
+  tile's pixels are all bytes, as on every level of the main path, it scores
+  two pixels with each three-input 16-bit DPX min/max. Otherwise it uses
+  f32 min/max.
+- ``orb_desc_moments.cu`` (B2): replaces
+  ``ops/descriptors.py::descriptors_moments_pallas``.  Bound by device memory
+  (the disc's raw pixels and the 512 blurred samples of each keypoint).
+  Persistent warps keep the sampling pattern in registers. Each lane streams
+  one disc column without shared memory, and each lane writes its 8 bits in
+  one store.
+- ``persistent.cuh``: the grid size of a persistent kernel, shared by both.
 """
 
 from __future__ import annotations
@@ -68,7 +85,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    """The built library of kernel ``name``; its digest covers the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -111,6 +111,8 @@ def descriptors_moments(blur: Sequence[torch.Tensor],
     bits = torch.empty((n, 256), dtype=torch.uint8, device=dev)
     m10 = torch.empty(n, dtype=torch.float32, device=dev)
     m01 = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:          # nothing to launch, and nothing to count
+        return bits, m10, m01
     pattern = _pattern_tensor(dev)
     fn = kernels.entry(KERNEL)
     holders = (kernels.pointer_array([t.data_ptr() for t in blur]),

@@ -109,6 +109,94 @@ def test_descriptors_match_plain_version(frames):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fractional", [False, True])
+def test_fast_score_small_and_ragged_levels(card, fractional):
+    """Kernel B1 in one launch over levels smaller than one 64x32 tile and
+    levels with ragged tile edges, three frames each."""
+    rng = np.random.default_rng(7)
+    shapes = [(4, 4), (5, 7), (31, 63), (33, 65), (32, 64), (70, 129)]
+    levels = []
+    for h, w in shapes:
+        img = rng.integers(0, 256, (3, h, w)).astype(np.float32)
+        if fractional:
+            img += rng.random((3, h, w)).astype(np.float32)
+        levels.append(torch.from_numpy(img).to(card))
+    before = kernels.launches["fast_score"]
+    got = fields.fast_score_batch(levels)
+    torch.cuda.synchronize()
+    assert kernels.launches["fast_score"] == before + 1
+    for g, lv in zip(got, levels):
+        assert torch.equal(g, fast.corner_score(lv))
+
+
+@pytest.mark.cuda
+def test_fast_score_tiles_mixing_byte_and_other_pixels(card):
+    """B1 takes its packed 16-bit branch only on tiles whose staged pixels
+    are all integers in [0, 255]: here fractional pixels, values outside
+    [0, 255] and a negative zero fall in some tiles of a level (across tile
+    boundaries and halos), the rest are bytes."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (2, 100, 150)).astype(np.float32)
+    img[0, 20:40, 50:80] += 0.5                      # straddles a tile edge
+    img[0, 63, 10] = 256.0                           # in a halo row
+    img[1, 70:75, 120:140] = -3.0
+    img[1, 5, 5] = -0.0
+    levels = [torch.from_numpy(img).to(card),
+              torch.from_numpy(np.round(img[:, ::2, ::2])).to(card)]
+    got = fields.fast_score_batch(levels)
+    torch.cuda.synchronize()
+    for g, lv in zip(got, levels):
+        assert torch.equal(g, fast.corner_score(lv))
+
+
+def _descriptor_inputs(card, n_kp, seed=3):
+    """Padded blurred/raw levels of 2 frames x 3 levels and n_kp keypoints:
+    the first ones at the four corners of each level (the padded border)
+    and padding slots at (level 0, frame 0, 0, 0), the rest random."""
+    rng = np.random.default_rng(seed)
+    sizes = [(48, 64), (40, 53), (33, 44)]
+    pad = descriptors.SAMPLE_PAD
+    blur, raw = [], []
+    for h, w in sizes:
+        img = torch.from_numpy(rng.integers(0, 256, (2, h, w)).astype(
+            np.float32)).to(card)
+        raw.append(imops.reflect_pad(img, pad).contiguous())
+        smooth = torch.clamp(torch.round(imops.gaussian_blur(img, 7, 2.0)),
+                             0.0, 255.0)
+        blur.append(imops.reflect_pad(smooth, pad).contiguous())
+    fixed = [(lvl, f, y, x) for lvl, (h, w) in enumerate(sizes) for f in (0, 1)
+             for y, x in ((0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1))]
+    fixed += [(0, 0, 0, 0)] * 5
+    rows = []
+    for i in range(n_kp):
+        if i < len(fixed):
+            rows.append(fixed[i])
+        else:
+            lvl = int(rng.integers(0, 3))
+            h, w = sizes[lvl]
+            rows.append((lvl, int(rng.integers(0, 2)), int(rng.integers(0, h)),
+                         int(rng.integers(0, w))))
+    kp = torch.tensor(rows, dtype=torch.int32).reshape(-1, 4).to(card)
+    return (blur, raw) + tuple(kp[:, i].contiguous() for i in range(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_kp", [0, 1, 29, 37, 1000])
+def test_descriptors_border_padding_and_ragged_counts(card, n_kp):
+    """Kernel B2 on keypoints at the padded border, padding slots at (0, 0),
+    K not a multiple of the warps a block, and K = 0 (no launch)."""
+    inputs = _descriptor_inputs(card, n_kp)
+    before = kernels.launches["orb_desc_moments"]
+    got = descriptors.descriptors_moments(*inputs)
+    want = descriptors.descriptors_moments_plain(*inputs)
+    torch.cuda.synchronize()
+    assert kernels.launches["orb_desc_moments"] == before + (n_kp > 0)
+    assert got[0].shape == (n_kp, 256)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_extract_batch_on_the_card_equals_the_cpu(frames):
     k_gpu = orb.extract_batch(frames.cuda(), CFG)
     k_cpu = orb.extract_batch(frames, CFG)
