@@ -30,10 +30,24 @@ Phases (one JSON line each, prefixed "phase"):
            verified and applied;
   place_batch   bench.py's place stage on the port: the shipped vocabulary,
            place recognition on, the 6-frame 720p fixture cycled, 72
-           warm-up frames then 240 timed ones in batches of 24.
-The kernels' launch counters are reset just before main, place_frames and
-place_batch are driven and read just after; B1 and B2 must have launched in
-each.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
+           warm-up frames then 240 timed ones in batches of 24;
+  yolo     YoloDetector with the shipped weights on three rendered 720p
+           walker frames, on the card and on the CPU, at 640 (the config's
+           input size) and at 256 (the size the weights embed, which the
+           detector honours): logits, NMS and detections held against the
+           CPU (phase_yolo says how); ms a call (median of 20), the
+           forward and NMS alone;
+  dynamic_small  the reference's in-loop culling proof
+           (semantic/train.in_loop_eval): 320x240, 180 frames, seed 0,
+           default_walkers, process() with culling off, with ground-truth
+           boxes and with the learned detector; tests/test_dynamic.py's
+           limits on ATE and walker landmarks;
+  dynamic_frames  cli.main(["run", "--source", "dynamic", "--detector",
+           "yolov8", ...]) in-process at 720p with every default on: fps,
+           the detector and frame stages, ATE, walker and person landmarks.
+The kernels' launch counters are reset just before main, place_frames,
+place_batch, dynamic_small and dynamic_frames are driven and read just
+after; B1 and B2 must have launched in each.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Imports nothing of JAX or of the JAX package.
 """
@@ -41,7 +55,9 @@ line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -53,14 +69,17 @@ import time
 import numpy as np
 import torch
 
-from dynamic_visual_slam_tpu_torch import kernels
+from dynamic_visual_slam_tpu_torch import cli, convert, kernels
 from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
                                                   SLAMConfig)
 from dynamic_visual_slam_tpu_torch.frontend import orb
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
+from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
+from dynamic_visual_slam_tpu_torch.semantic.detector import (
+    YoloDetector, boxes_to_detections)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # Kernel B1's (and B3's) instructions a pixel, by class, counted in
@@ -90,13 +109,25 @@ TIMED_BATCHES = 10             # 240 frames, BA fires on its 2 s tick
 ORBIT_FRAMES = 240             # place_frames: frames per orbit (two orbits)
 PLACE_SYNC_EVERY = 3           # place_batch: bench.py's default
 PLACE_TIMED = 240              # place_batch: timed frames, as bench.py
-VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
-                     "orbvoc_synth.npz")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+VOCAB = os.path.join(ROOT, "assets", "orbvoc_synth.npz")
+YOLO_WEIGHTS = os.path.join(ROOT, "assets", "yolov8n_synth.npz")
+# tests/test_torch_yolo.py's bounds: every candidate above the score
+# threshold, anchor by anchor, by input size; a detection at 256 (its
+# detect test); a detection at 640, where that test has no counterpart (the
+# reference and the port keep other classes on some frames there), as the
+# candidate it is
+YOLO_CANDIDATE_TOL_PX = {256: 2.75, 640: 4.3}
+YOLO_BOX_TOL_PX = {256: 1.5, 640: 4.3}
+DYNAMIC_SMALL_FRAMES = 180     # semantic/train.in_loop_eval's default
+DYNAMIC_FRAMES = 120           # dynamic_frames: 720p frames
 T_START = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps(dict(phase=phase, **kw)), flush=True)
+    print(json.dumps(dict(phase=phase, **kw,
+                          elapsed_s=time.perf_counter() - T_START)),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -538,6 +569,296 @@ def phase_place_batch(frames, cfg: SLAMConfig):
     check_launches("place_batch", launches)
 
 
+def host_ms(fn, reps: int = 20) -> float:
+    """Median milliseconds of fn() on the host clock, each call ended by
+    torch.cuda.synchronize() (after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_yolo():
+    """The detector on the card against the CPU on three 720p walker
+    frames, at 640 (the config's input size) and at the weights' own size
+    (256), both fed the CPU's letterbox: (a) every scale's logits within
+    2 % of its largest magnitude (tests/test_torch_yolo.py's bound); (b) the
+    card's NMS on the CPU's decoded candidates equal to the CPU's in every
+    output; (c) the decoded boxes of every candidate above the score
+    threshold, anchor by anchor, within YOLO_CANDIDATE_TOL_PX; (d) the
+    whole detector, on frames whose margins are clear (no candidate's best
+    score within 0.01 of the threshold): the same classes, and for each of
+    the CPU's detections a card detection of its class within
+    YOLO_BOX_TOL_PX of a member of its tied group (box_errors).  Scores
+    saturate at 1.0 on these frames, and among boxes that tie, last-bit
+    differences decide which one NMS keeps."""
+    cam = SLAMConfig().camera
+    rgbs = [np.stack([g] * 3, -1).astype(np.uint8) for g, *_ in
+            synthetic.generate_dynamic_sequence(cam, 3, seed=0)]
+    params = convert.load_params(YOLO_WEIGHTS)
+    weights = {k: v for k, v in params.items() if k != "input_size"}
+    base = SLAMConfig()
+    sizes = {}
+    for size in (640, int(params["input_size"])):
+        cfg = base.replace(semantic=dataclasses.replace(base.semantic,
+                                                        input_size=size))
+        sc = cfg.semantic
+
+        def nms(boxes, cls):
+            return yolov8.nms(boxes, cls, sc.max_detections,
+                              sc.score_threshold, sc.iou_threshold)
+
+        gpu = YoloDetector(cfg, params=weights, device="cuda")
+        cpu = YoloDetector(cfg, params=weights, device="cpu")
+        r = dict(logit_err=0.0, letterbox_err=0.0, candidate_err_px=0.0,
+                 candidates=0, box_err_px=0.0, frames_unclear=0,
+                 frames_differing=0, detections=0, detections_tied=0)
+        for rgb in rgbs:
+            canvas = cpu.letterbox(rgb)[0]
+            r["letterbox_err"] = max(r["letterbox_err"], float(
+                (gpu.letterbox(rgb)[0].cpu() - canvas).abs().max()))
+            x = canvas.permute(2, 0, 1)[None]
+            with torch.inference_mode():
+                want_out = cpu.model(x)
+                got_out = gpu.model(x.cuda())
+            for wo, go in zip(want_out, got_out):
+                for w, g in zip(wo, go):
+                    r["logit_err"] = max(r["logit_err"], float(
+                        (g.cpu() - w).abs().max() / w.abs().max()))
+            wb, wc = yolov8.decode(want_out)
+            gb, gc = (t.cpu() for t in yolov8.decode(got_out))
+            hot = wc.amax(1) > sc.score_threshold
+            r["candidates"] += int(hot.sum())
+            r["candidate_err_px"] = max(r["candidate_err_px"], float(
+                (gb[hot] - wb[hot]).abs().max()))
+            want = nms(wb, wc)
+            same_in = yolov8.RawDetections(*(
+                t.cpu() for t in nms(wb.cuda(), wc.cuda())))
+            if not all(torch.equal(a, b) for a, b in zip(same_in, want)):
+                fail(f"yolo at {size}: NMS on the card differs from the CPU "
+                     "on the same candidates")
+            top = torch.topk(wc.amax(1), min(256, len(wc))).values
+            if bool(((top - sc.score_threshold).abs() < 0.01).any()):
+                r["frames_unclear"] += 1
+                continue
+            got = yolov8.RawDetections(*(t.cpu() for t in nms(gb, gc)))
+            gv, wv = got.valid, want.valid
+            if sorted(got.classes[gv].tolist()) != \
+                    sorted(want.classes[wv].tolist()):
+                r["frames_differing"] += 1
+                continue
+            err, tied = box_errors(want, got, wb, wc, sc.iou_threshold)
+            r["detections"] += len(err)
+            r["detections_tied"] += sum(tied)
+            r["box_err_px"] = max([r["box_err_px"]] + err)
+        canvas = gpu.letterbox(rgbs[0])[0]
+        x = canvas.permute(2, 0, 1)[None]
+        with torch.inference_mode():
+            boxes, cls = yolov8.decode(gpu.model(x))
+            r.update(
+                call_ms=host_ms(lambda: gpu(rgbs[0])),
+                forward_ms=host_ms(lambda: gpu.model(x)),
+                forward_device_ms=cuda_ms(lambda: gpu.model(x), reps=20),
+                nms_ms=host_ms(lambda: nms(boxes, cls)),
+                nms_device_ms=cuda_ms(lambda: nms(boxes, cls), reps=20))
+        sizes[size] = r
+        if r["logit_err"] > 0.02:
+            fail(f"yolo at {size}: logits differ by {r['logit_err']:.4f} "
+                 "of the largest magnitude (bound 0.02)")
+        if r["candidate_err_px"] > YOLO_CANDIDATE_TOL_PX[size]:
+            fail(f"yolo at {size}: candidate boxes differ by "
+                 f"{r['candidate_err_px']} px (bound "
+                 f"{YOLO_CANDIDATE_TOL_PX[size]})")
+        if r["frames_differing"] or r["box_err_px"] > YOLO_BOX_TOL_PX[size] \
+                or r["detections"] < 1:
+            fail(f"yolo at {size}: {r['frames_differing']} frames with "
+                 f"other classes, {r['detections']} detections, boxes "
+                 f"within {r['box_err_px']} px (bound "
+                 f"{YOLO_BOX_TOL_PX[size]})")
+        if r["letterbox_err"] > 1e-5:
+            fail(f"yolo at {size}: letterbox differs by {r['letterbox_err']}")
+    emit("yolo", frames=len(rgbs), sizes=sizes)
+
+
+def box_errors(want, got, boxes, cls, iou_thr: float):
+    """For each valid detection of ``want`` (the CPU's): its tied group is
+    its own box and the CPU's candidates (``boxes``, ``cls``) of its class
+    that overlap it by more than iou_thr and score within 0.01 of it; its
+    error is the distance in px (largest coordinate) from the nearest
+    detection of ``got`` (the card's) of its class to the nearest member of
+    the group.  → (errors, whether the group has another member)."""
+    best, best_cls = cls.amax(1), cls.argmax(1)
+    g_boxes, g_cls = got.boxes[got.valid], got.classes[got.valid]
+    errs, tied = [], []
+    for box, score, c in zip(want.boxes[want.valid], want.scores[want.valid],
+                             want.classes[want.valid]):
+        member = (yolov8._iou(box[None], boxes) > iou_thr) \
+            & (best_cls == c) & ((best - score).abs() <= 0.01)
+        group = torch.cat([box[None], boxes[member]])
+        mine = g_boxes[g_cls == c]
+        errs.append(float((mine[:, None] - group[None]).abs().amax(-1).min())
+                    if len(mine) else float("inf"))
+        tied.append(bool((member & ~(boxes == box).all(1)).any()))
+    return errs, tied
+
+
+def walker_landmarks(est_t, gt_t, xyz, n_obs, objects, duration_s):
+    """semantic/train.in_loop_eval's count: landmarks in the estimated
+    frame aligned onto the ground truth (the rigid alignment of ATE), then
+    those inside a walker's swept volume → (confirmed ones with n_obs >= 2,
+    all)."""
+    r, t = trajectory.umeyama_alignment(np.asarray(est_t, np.float64),
+                                        np.asarray(gt_t, np.float64))
+    hits = synthetic.walker_swept_hits(
+        np.asarray(xyz, np.float64) @ r.T + t, objects, duration_s)
+    return int(np.sum(hits & (np.asarray(n_obs) >= 2))), int(np.sum(hits))
+
+
+def run_dynamic_small(device, n_frames: int = DYNAMIC_SMALL_FRAMES):
+    """semantic/train.in_loop_eval on the port: culling off, ground-truth
+    boxes, the learned detector (the shipped weights at their 256)."""
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
+                       cx=159.5, cy=119.5)
+    cfg = SLAMConfig().replace(camera=cam)
+    objs = synthetic.default_walkers(n_frames)
+    frames = list(synthetic.generate_dynamic_sequence(
+        cam, n_frames, seed=0, objects=objs, depth_noise=0.004))
+    gt_t = np.stack([f[3] for f in frames])
+    detector = YoloDetector(cfg, weights_path=YOLO_WEIGHTS, device=device)
+    cap = cfg.semantic.max_detections
+    results = {}
+    for cond in ("off", "gt", "learned"):
+        slam = SLAMSystem(cfg, ba_async=False,
+                          enable_place_recognition=False, device=device)
+        kernels.reset_launch_counts()
+        n_boxes = 0
+        t0 = time.perf_counter()
+        for gray, depth, _, _, ts, boxes in frames:
+            det = None
+            if cond == "gt":
+                det = boxes_to_detections(boxes, cap, device=device)
+            elif cond == "learned":
+                det = detector(np.stack([gray] * 3, -1))
+                n_boxes += int(det.mask.sum())
+            slam.process(gray, depth, ts, detections=det)
+        slam.finalize()
+        seconds = time.perf_counter() - t0
+        _, _, est_t = slam.frontend_trajectory()
+        lms = slam.landmarks_world()
+        confirmed, anywhere = walker_landmarks(est_t, gt_t, lms["xyz"],
+                                               lms["n_obs"], objs,
+                                               n_frames / 30.0)
+        results[cond] = dict(
+            ate_m=trajectory.ate_rmse(est_t, gt_t),
+            walker_landmarks_confirmed=confirmed,
+            walker_landmarks_any=anywhere,
+            person_landmarks=int(np.sum(lms["category"] == 1)),
+            landmarks=int(len(lms["xyz"])),
+            keyframes=slam.stats["keyframes"], seconds=seconds,
+            ms_per_frame=seconds * 1e3 / n_frames,
+            launches=dict(kernels.launches))
+        if cond == "learned":
+            results[cond]["detections_total"] = n_boxes
+    return results
+
+
+def dynamic_small_failures(res):
+    """tests/test_dynamic.py's limits on the three conditions."""
+    off, gt, learned = res["off"], res["gt"], res["learned"]
+    c_off = off["walker_landmarks_confirmed"]
+    checks = [
+        (c_off >= 8, f"off has {c_off} confirmed walker landmarks (< 8)"),
+        (gt["walker_landmarks_confirmed"] <= max(2, c_off // 5),
+         f"gt keeps {gt['walker_landmarks_confirmed']} confirmed walker "
+         f"landmarks (> max(2, {c_off} // 5))"),
+        (off["ate_m"] > 1.35 * gt["ate_m"],
+         f"ATE off {off['ate_m']} not above 1.35 x gt {gt['ate_m']}"),
+        (gt["person_landmarks"] == 0 and learned["person_landmarks"] == 0,
+         "a landmark has the person category"),
+        (learned["walker_landmarks_confirmed"] < c_off,
+         f"learned keeps {learned['walker_landmarks_confirmed']} confirmed "
+         f"walker landmarks, off {c_off}"),
+    ]
+    return [msg for ok, msg in checks if not ok]
+
+
+def phase_dynamic_small():
+    res = run_dynamic_small("cuda")
+    emit("dynamic_small", frames=DYNAMIC_SMALL_FRAMES, **res)
+    bad = dynamic_small_failures(res)
+    if bad:
+        fail("dynamic_small: " + "; ".join(bad))
+    for cond, r in res.items():
+        check_launches(f"dynamic_small/{cond}", r["launches"])
+
+
+def run_dynamic_frames(device, n_frames: int = DYNAMIC_FRAMES,
+                       width: int = 1280, height: int = 720, seed: int = 0):
+    """cli run on the walker scene with the learned detector, every
+    default on (place recognition with an online vocabulary, pose-graph
+    loop correction, relocalization), in-process; returns its stats and the
+    walker and person landmarks of the system it ran."""
+    out_dir = os.path.join(ROOT, "build", f"dynamic_frames_{device}")
+    argv = ["run", "--source", "dynamic", "--detector", "yolov8",
+            "--weights", YOLO_WEIGHTS, "--frames", str(n_frames),
+            "--width", str(width), "--height", str(height),
+            "--seed", str(seed), "--device", device, "--out-dir", out_dir]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv, out=run)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rc != 0:
+        fail(f"dynamic_frames: cli run returned {rc}")
+    slam, gt = run["system"], run["gt_positions"]
+    stamps, _, est_t = slam.frontend_trajectory()
+    if len(stamps) != len(gt):
+        fail(f"dynamic_frames: {len(stamps)} frames for {len(gt)} stamps")
+    gt_t = np.stack([gt[k] for k in sorted(gt)])
+    lms = slam.landmarks_world()
+    walkers, anywhere = walker_landmarks(
+        est_t, gt_t, lms["xyz"], lms["n_obs"],
+        synthetic.default_walkers(n_frames), n_frames / 30.0)
+    return dict(argv=argv, seconds=seconds, launches=launches,
+                walker_landmarks_confirmed=walkers,
+                walker_landmarks_any=anywhere,
+                person_landmarks=int(np.sum(lms["category"] == 1)),
+                stats=run["stats"])
+
+
+def phase_dynamic_frames():
+    res = run_dynamic_frames("cuda")
+    st = res["stats"]
+    stages = {k: {m: v.get(m) for m in ("count", "first_ms", "median_ms",
+                                         "p90_ms")}
+              for k, v in st["stages"].items()}
+    emit("dynamic_frames", frames=DYNAMIC_FRAMES, fps=st["fps"],
+         wall_s=st["wall_s"], seconds=res["seconds"], stages=stages,
+         ate_m=st.get("ate_rmse_m"),
+         walker_landmarks_confirmed=res["walker_landmarks_confirmed"],
+         walker_landmarks_any=res["walker_landmarks_any"],
+         person_landmarks=res["person_landmarks"],
+         landmarks=st["landmarks"], keyframes=st["keyframes"],
+         loop_candidates=st["loop_candidates"],
+         relocalizations=st["relocalizations"], ba_runs=st["ba_runs"],
+         launches=res["launches"], argv=res["argv"][1:])
+    ate = st.get("ate_rmse_m")
+    if ate is None or not math.isfinite(ate):
+        fail(f"dynamic_frames: ATE {ate}")
+    if res["person_landmarks"] != 0:
+        fail(f"dynamic_frames: {res['person_landmarks']} person landmarks")
+    if st["frames"] != DYNAMIC_FRAMES:
+        fail(f"dynamic_frames: {st['frames']} frames processed")
+    check_launches("dynamic_frames", res["launches"])
+
+
 def main() -> None:
     name, smi_line = phase_device()
     phase_build()
@@ -549,6 +870,9 @@ def main() -> None:
     phase_place_small()
     phase_place_frames(cfg)
     phase_place_batch(frames, cfg)
+    phase_yolo()
+    phase_dynamic_small()
+    phase_dynamic_frames()
     for r in rows:
         # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]

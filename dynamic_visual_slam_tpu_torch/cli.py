@@ -1,0 +1,305 @@
+"""Command-line entry point of the PyTorch port: ``run``, the reference
+package's ``cli run`` (its other subcommands are not ported yet).
+
+    python -m dynamic_visual_slam_tpu_torch.cli run --source synthetic \
+        --frames 120
+    python -m dynamic_visual_slam_tpu_torch.cli run --source dynamic \
+        --detector yolov8 --weights assets/yolov8n_synth.npz
+    python -m dynamic_visual_slam_tpu_torch.cli run --source /data/tum_fr3 \
+        --preset tum_fr3 --detector none
+
+Runs on the card (``--device cuda``, the default; it raises without one)
+unless ``--device cpu`` is given.  Outputs (``--out-dir``): frontend and
+keyframe trajectories (TUM format), landmark and trajectory PLYs, and the
+stats JSON (the system's counters, ``fps``, ``wall_s``, ``landmarks``,
+per-stage timings, ``ate_rmse_m`` on synthetic sources).  ``main(argv,
+out=...)`` also hands an in-process caller the run's system.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dynamic_visual_slam_tpu_torch.config import SLAMConfig
+
+
+def _build_config(args) -> SLAMConfig:
+    cfg = SLAMConfig.preset(args.preset) if args.preset else SLAMConfig()
+    if args.width and args.height:
+        cfg = cfg.replace(camera=cfg.camera.scaled(args.width, args.height))
+    if args.anchor is not None:
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, anchor_to_keyframe=args.anchor))
+    return cfg
+
+
+def cmd_run(args, out: Optional[dict] = None) -> int:
+    from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
+    from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
+    from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
+    from dynamic_visual_slam_tpu_torch.utils import profiling, viz
+
+    cfg = _build_config(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    detector = None
+    if args.detector == "yolov8":
+        from dynamic_visual_slam_tpu_torch.semantic.detector import (
+            YoloDetector)
+        detector = YoloDetector(cfg, weights_path=args.weights,
+                                device=args.device)
+    elif args.detector == "gt":
+        # ground-truth bboxes from the dynamic synthetic world
+        from dynamic_visual_slam_tpu_torch.semantic.detector import GTDetector
+        if args.source != "dynamic":
+            print("error: --detector gt requires --source dynamic",
+                  file=sys.stderr)
+            return 2
+        detector = GTDetector(cfg, device=args.device)
+
+    if args.vocab and not os.path.exists(args.vocab):
+        print(f"error: vocabulary '{args.vocab}' not found", file=sys.stderr)
+        return 2
+    slam = SLAMSystem(cfg, loop_pgo=args.loop_pgo,
+                      vocab_path=args.vocab or None,
+                      enable_relocalization=not args.no_reloc,
+                      device=args.device)
+    if slam.enable_place_recognition:
+        # build the place chain's programs before the first frame
+        slam.warmup_place()
+    timer = profiling.StageTimer()
+
+    if args.source == "synthetic":
+        frames = synthetic.generate_sequence(cfg.camera, args.frames,
+                                             seed=args.seed,
+                                             depth_noise=0.004)
+        gt = []
+    elif args.source == "dynamic":
+        # moving-object scene; GT bboxes feed the gt detector if selected
+        def _dyn():
+            for g, d, r, t, ts, boxes in synthetic.generate_dynamic_sequence(
+                    cfg.camera, args.frames, seed=args.seed,
+                    depth_noise=0.004):
+                if detector is not None and hasattr(detector, "record"):
+                    detector.record(ts, boxes)
+                yield g, d, r, t, ts
+        frames = _dyn()
+        gt = []
+    else:
+        if not os.path.exists(os.path.join(args.source, "rgb.txt")):
+            print(f"error: '{args.source}' is not a TUM RGB-D directory "
+                  "(rgb.txt not found); use --source synthetic or a dataset "
+                  "root containing rgb.txt/depth.txt", file=sys.stderr)
+            return 2
+        ds = tum.TUMDataset(args.source)
+        frames = ((g, d, None, None, ts) for g, d, ts in
+                  ds.frames(limit=args.frames or None))
+        gt = ds
+
+    # Ground truth keyed by frame timestamp: under --threaded the
+    # drop-oldest queue means not every yielded frame is processed, so gt
+    # must be aligned to the trajectory stamps afterwards, never zipped
+    # positionally with the input stream.
+    gt_map = {}
+    runner_stats = None
+    t_start = time.perf_counter()
+    n = 0
+
+    def _detect(gray, ts):
+        """Run the detector for one frame (stamp-aware detectors get ts)."""
+        rgb = np.stack([gray] * 3, axis=-1)
+        if hasattr(detector, "record"):
+            return detector(rgb, ts)
+        return detector(rgb)
+
+    if args.batch and not args.threaded:
+        # offline throughput mode: frames through process_batch in batches
+        # of B; a detector runs per frame and its Detections are stacked
+        b = args.batch
+        buf, det_buf = [], []
+        for gray, depth, r_gt, t_gt, ts in frames:
+            if t_gt is not None:
+                gt_map[float(ts)] = t_gt
+            if detector is not None:
+                with timer.stage("detector"):
+                    det_buf.append(_detect(np.asarray(gray), float(ts)))
+            buf.append((np.asarray(gray), np.asarray(depth), float(ts)))
+            n += 1
+            if len(buf) == b:
+                dets = Detections(*(torch.stack(xs) for xs in zip(
+                    *det_buf))) if det_buf else None
+                with timer.stage("batch"):
+                    slam.process_batch(
+                        np.stack([x[0] for x in buf]),
+                        np.stack([x[1] for x in buf]),
+                        np.asarray([x[2] for x in buf]),
+                        detections=dets)
+                buf, det_buf = [], []
+        for i, (gray, depth, ts) in enumerate(buf):  # tail < one batch
+            det = det_buf[i] if det_buf else None
+            slam.process(gray, depth, ts, detections=det)
+        slam.finalize()
+        wall = time.perf_counter() - t_start
+    elif args.threaded:
+        # middleware transport: IO thread → bounded queue →
+        # ApproximateTime → device loop (pipeline/runner.py)
+        from dynamic_visual_slam_tpu_torch.pipeline.runner import (
+            ThreadedPipeline)
+
+        def gen():
+            nonlocal n
+            for gray, depth, r_gt, t_gt, ts in frames:
+                if t_gt is not None:
+                    gt_map[float(ts)] = t_gt
+                n += 1
+                yield gray, depth, ts
+
+        runner = ThreadedPipeline(slam, detector=detector)
+        runner_stats = runner.run(gen())
+        wall = time.perf_counter() - t_start
+    else:
+        debug_every = args.debug_images
+        if debug_every:
+            os.makedirs(os.path.join(args.out_dir, "debug"), exist_ok=True)
+        for gray, depth, r_gt, t_gt, ts in frames:
+            det = None
+            if detector is not None:
+                with timer.stage("detector"):
+                    det = _detect(np.asarray(gray), float(ts))
+            with timer.stage("frame"):
+                slam.process(gray, depth, ts, detections=det)
+            if debug_every and n % debug_every == 0:
+                # annotated feature image, the reference's per-frame
+                # /feature_detector/features_image (frontend.cpp:1229-1232)
+                kp = slam.tracker_state.prev
+                m = kp.mask.cpu().numpy()
+                img = viz.annotate_features(np.asarray(gray),
+                                            kp.uv.cpu().numpy()[m])
+                path = os.path.join(args.out_dir, "debug",
+                                    f"frame_{n:05d}.png")
+                if not viz.save_image(path, img):
+                    np.save(path.replace(".png", ".npy"), img)
+            if t_gt is not None:
+                gt_map[float(ts)] = t_gt
+            n += 1
+        slam.finalize()
+        wall = time.perf_counter() - t_start
+
+    # exports
+    stamps, rs, ts_arr = slam.frontend_trajectory()
+    trajectory.write_tum(os.path.join(args.out_dir, "frontend.tum"),
+                         stamps, list(zip(rs, ts_arr)))
+    kf_stamps, kf_rs, kf_ts = slam.keyframe_trajectory()
+    trajectory.write_tum(os.path.join(args.out_dir, "keyframes.tum"),
+                         kf_stamps, list(zip(kf_rs, kf_ts)))
+    lms = slam.landmarks_world()
+    viz.landmarks_to_ply(os.path.join(args.out_dir, "landmarks.ply"),
+                         lms["xyz"], lms["n_obs"])
+    viz.trajectory_to_ply(os.path.join(args.out_dir, "trajectory.ply"),
+                          ts_arr)
+
+    n_done = runner_stats["frames_processed"] if runner_stats else n
+    stats = dict(slam.stats, fps=round(n_done / max(wall, 1e-9), 2),
+                 wall_s=round(wall, 2), landmarks=int(len(lms["xyz"])),
+                 stages=timer.summary())
+    if runner_stats:
+        stats["queue_dropped"] = runner_stats.get("queue_dropped", 0)
+        stats["frames_in"] = runner_stats.get("frames_in", n)
+    if args.source in ("synthetic", "dynamic") and gt_map:
+        # align gt by trajectory stamp (processed frames only)
+        keys = np.asarray(sorted(gt_map))
+        sel_est, sel_gt = [], []
+        for i, s in enumerate(stamps):
+            j = int(np.clip(np.searchsorted(keys, s), 0, len(keys) - 1))
+            jb = j - 1 if j > 0 and abs(keys[j - 1] - s) < abs(keys[j] - s) \
+                else j
+            if abs(keys[jb] - s) < 1e-3:
+                sel_est.append(ts_arr[i])
+                sel_gt.append(gt_map[float(keys[jb])])
+        if sel_est:
+            ate = trajectory.ate_rmse(np.stack(sel_est), np.stack(sel_gt))
+            stats["ate_rmse_m"] = round(float(ate), 5)
+    elif args.source not in ("synthetic", "dynamic"):
+        gt_pos = gt.gt_positions_at(stamps)
+        if gt_pos is not None:
+            stats["ate_rmse_m"] = round(
+                float(trajectory.ate_rmse(ts_arr, gt_pos)), 5)
+    with open(os.path.join(args.out_dir, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+    print(json.dumps(stats, indent=2))
+    if out is not None:
+        out.update(system=slam, stats=stats, gt_positions=gt_map)
+    return 0
+
+
+def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
+    """Parse ``argv`` and run the subcommand.  ``out``, a dict, receives
+    ``system`` (the run's SLAMSystem), ``stats`` and ``gt_positions`` (the
+    synthetic sources' ground-truth positions by frame stamp)."""
+    p = argparse.ArgumentParser(
+        prog="dynamic_visual_slam_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("run", help="run the SLAM pipeline")
+    pr.add_argument("--source", default="synthetic",
+                    help="'synthetic', 'dynamic' (moving objects + GT "
+                         "bboxes), or a TUM RGB-D directory")
+    pr.add_argument("--preset", default=None,
+                    choices=[None, "camera", "camera_rviz", "yolo_slam",
+                             "bag_playback", "tum_fr3"],
+                    help="launch-file-equivalent preset")
+    pr.add_argument("--frames", type=int, default=90)
+    pr.add_argument("--seed", type=int, default=0)
+    pr.add_argument("--width", type=int, default=424)
+    pr.add_argument("--height", type=int, default=240)
+    pr.add_argument("--detector", default="none",
+                    choices=["none", "yolov8", "gt"])
+    pr.add_argument("--weights", default=None,
+                    help="YOLOv8 weights (the reference's .npz)")
+    pr.add_argument("--out-dir", default="slam_out")
+    pr.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="offline throughput mode: frames through "
+                         "process_batch in batches of B")
+    pr.add_argument("--debug-images", type=int, default=0, metavar="N",
+                    help="write an annotated feature image every N frames "
+                         "to OUT_DIR/debug/")
+    pr.add_argument("--threaded", action="store_true",
+                    help="route frames through the bounded-queue/"
+                         "ApproximateTime middleware (IO thread + device "
+                         "loop)")
+    pr.add_argument("--loop-pgo", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="consume loop closures through the pose-graph "
+                         "solve over the keyframe ring; --no-loop-pgo "
+                         "selects the age-interpolated correction")
+    pr.add_argument("--no-reloc", action="store_true",
+                    help="disable BoW relocalization after tracking loss")
+    pr.add_argument("--anchor", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="keyframe-anchored tracking (on by default, "
+                         "cfg.tracking.anchor_to_keyframe); --no-anchor "
+                         "selects the frame-to-frame chain")
+    pr.add_argument("--vocab", default=None, metavar="NPZ",
+                    help="pretrained BoW vocabulary (e.g. "
+                         "assets/orbvoc_synth.npz); else one is trained "
+                         "online")
+    pr.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    pr.set_defaults(fn=cmd_run)
+
+    args = p.parse_args(argv)
+    return args.fn(args, out)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,10 +7,13 @@ imports JAX — and builds the port's NamedTuples of tensors on a device;
 ``to_numpy`` goes the other way.
 
 Covered: ``Keypoints``, ``TrackerState``, ``KeyframeBlock``, ``MapState``
-(``LandmarkMap`` + ``KeyframeDB``), ``BAProblem``; and the place
-recognition state, ``bow.Vocabulary`` (``k``, ``depth``, lists ``levels``
-and ``valid``, ``word_weights``) and ``bow.Database`` (``vocabulary``,
-``capacity``, ``vectors``, ``used``, ``count``), both ways.
+(``LandmarkMap`` + ``KeyframeDB``), ``BAProblem``; the place recognition
+state, ``bow.Vocabulary`` (``k``, ``depth``, lists ``levels`` and
+``valid``, ``word_weights``) and ``bow.Database`` (``vocabulary``,
+``capacity``, ``vectors``, ``used``, ``count``), both ways; and the YOLOv8
+weights (``load_params`` reads the reference's path-keyed npz,
+``yolo_state_dict`` turns its HWIO tree into ``models.yolov8.YOLOv8``'s
+OIHW state dict).
 
 The reference's ``TrackerState.rng`` (a threefry key) has no torch
 counterpart and is dropped: the port takes its randomness from a
@@ -117,3 +120,56 @@ def database_to_numpy(db: bow.Database) -> Dict[str, Any]:
     return dict(vocabulary=vocabulary_to_numpy(db.vocabulary),
                 capacity=db.capacity, vectors=db.vectors.cpu().numpy(),
                 used=db.used.cpu().numpy(), count=db.count)
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """The reference's YOLOv8 npz (``yolo/<path>`` keys, float32 arrays) →
+    its nested parameter tree as numpy: dicts, lists where every key is a
+    digit, ``num_classes`` from the last class convolution, and the
+    scalar ``input_size`` when the file embeds one."""
+    root: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split("/")[1:]
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(data[key], np.float32)
+
+    def listify(node):
+        if isinstance(node, dict):
+            if node and all(k.isdigit() for k in node):
+                return [listify(node[str(i)]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    params = listify(root)
+    params["num_classes"] = params["heads"][0]["cls3"]["b"].shape[0]
+    return params
+
+
+def yolo_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's YOLOv8 parameter tree (numpy: from ``load_params``,
+    or ``np.asarray`` of its ``init_params``) → ``YOLOv8``'s state dict:
+    ``w`` HWIO → OIHW, every array rounded to bf16 (round to nearest even,
+    as the reference's cast).  ``num_classes`` and ``input_size`` are not
+    weights and are skipped."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def rec(node, prefix):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                if prefix or k not in ("num_classes", "input_size"):
+                    rec(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(v, f"{prefix}{i}.")
+        else:
+            a = np.asarray(node, np.float32)
+            if prefix.endswith("w."):
+                a = a.transpose(3, 2, 0, 1)
+            out[prefix[:-1]] = torch.from_numpy(
+                np.ascontiguousarray(a)).to(torch.bfloat16)
+
+    rec(params, "")
+    return out

@@ -9,7 +9,8 @@ Images are (..., H, W) float32 grayscale in [0, 255]; every function takes
 any number of leading batch dims.  The resize and blur follow the
 reference's formulas term for term (not ``F.interpolate`` / ``conv2d``):
 their outputs are rounded to integers afterwards, and a different
-summation order can move a pixel that sits on a .5 boundary by one.
+summation order can move a pixel that sits on a .5 boundary by one.  The
+resize also forms the reference's fused multiply-adds (``resize_bilinear``).
 """
 
 from __future__ import annotations
@@ -29,14 +30,33 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float
             for l in range(n_levels)]
 
 
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add: the product
+    of two float32 values is exact in float64, the sum is formed there and
+    rounded to float32 at the end.  b and c are float32 tensors, or Python
+    floats holding float32 values."""
+    def f64(x):
+        return x.double() if torch.is_tensor(x) else x
+    return (a.double() * f64(b) + f64(c)).to(torch.float32)
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize with half-pixel centers (cv::INTER_LINEAR convention)."""
+    """Bilinear resize with half-pixel centers (cv::INTER_LINEAR convention).
+
+    The reference's XLA program on an x86 host with FMA3 contracts three
+    steps into fused multiply-adds: the source coordinate
+    fma(i + 0.5, h/out_h, -0.5), and each of the two interpolations
+    fma(a, 1 - w, b * w) with b * w rounded first.  The levels are rounded
+    to integers afterwards, so one last-ulp difference can move a pixel on
+    a .5 boundary by one: the same fmas are formed here, in float64 on
+    every device, and the levels equal the reference's pixel for pixel."""
     h, w = img.shape[-2:]
     dev = img.device
-    ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) \
-        * (h / out_h) - 0.5
-    xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) \
-        * (w / out_w) - 0.5
+    f32 = torch.float32
+    ys = _fma(torch.arange(out_h, dtype=f32, device=dev) + 0.5,
+              float(np.float32(h / out_h)), -0.5)
+    xs = _fma(torch.arange(out_w, dtype=f32, device=dev) + 0.5,
+              float(np.float32(w / out_w)), -0.5)
     y0 = torch.clamp(torch.floor(ys), 0, h - 1)
     x0 = torch.clamp(torch.floor(xs), 0, w - 1)
     wy = torch.clamp(ys - y0, 0.0, 1.0)
@@ -47,10 +67,10 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     x1i = torch.clamp(x0i + 1, max=w - 1)
     top = img[..., y0i, :]          # (..., out_h, w)
     bot = img[..., y1i, :]
-    rows = top * (1 - wy)[:, None] + bot * wy[:, None]
+    rows = _fma(top, (1 - wy)[:, None], bot * wy[:, None])
     left = rows[..., x0i]           # (..., out_h, out_w)
     right = rows[..., x1i]
-    return left * (1 - wx)[None, :] + right * wx[None, :]
+    return _fma(left, (1 - wx)[None, :], right * wx[None, :])
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float,

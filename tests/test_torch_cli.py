@@ -1,0 +1,324 @@
+"""The port's command line, ``cli run``, on the CPU, and the host modules
+its outputs go through, against the JAX package.
+
+- ``cli run --source dynamic --detector gt`` at 160x120 writes the
+  trajectory that SLAMSystem gives on the same frames and detections, frame
+  by frame, with ``--batch 4`` and with ``--threaded``; without ``--device
+  cpu`` and without a card it raises.  Tolerance: none.  The command line
+  drives the same system on the same inputs, and the TUM file prints each
+  pose to 6 decimals.
+- Beside the reference's ``cli run`` (per frame, 24 frames at 160x120,
+  seed 3, GT boxes, every default on) with the reference's RANSAC draws fed
+  to the port (torch_parity.JaxSampler; the port extracts its own
+  keypoints, whose pyramid equals the reference's): the stats carry the
+  same keys and the same counters (landmarks within 2 %, the dynamic
+  per-frame slice's bound), the stages the same names and counts, the TUM
+  files the same stamps, and every frontend and keyframe position lies
+  within 6 mm of the reference's, the dynamic per-frame slice's bound
+  (tests/test_torch_dynamic.py), with the RMS within 2 mm and the ATE
+  within 1 mm (measurements in ``test_run_matches_the_reference_cli``).
+- The host modules the outputs go through are numpy copies of the
+  reference's: TUM trajectory files (``quat_from_mat``, ``write_tum``,
+  ``read_tum``), the ATE (``umeyama_alignment``, ``ate_rmse``; 1e-12),
+  the PLY writers, the feature image, ``io/tum.TUMDataset`` and
+  ``StageTimer.summary`` (on the same clock): equal to the byte, but for
+  the port's two extra stage keys (``median_ms``, ``p90_ms``).
+"""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import JaxSampler, Pacer
+
+from dynamic_visual_slam_tpu import cli as jcli
+from dynamic_visual_slam_tpu.io import trajectory as jtraj
+from dynamic_visual_slam_tpu.io import tum as jtum
+from dynamic_visual_slam_tpu.utils import profiling as jprof
+from dynamic_visual_slam_tpu.utils import viz as jviz
+from dynamic_visual_slam_tpu_torch import cli
+from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
+from dynamic_visual_slam_tpu_torch.config import SLAMConfig
+from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
+from dynamic_visual_slam_tpu_torch.pipeline import slam as pslam
+from dynamic_visual_slam_tpu_torch.pipeline.runner import (_pack_frame,
+                                                           _unpack_frame)
+from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
+from dynamic_visual_slam_tpu_torch.semantic.detector import (
+    GTDetector, boxes_to_detections)
+from dynamic_visual_slam_tpu_torch.utils import profiling, viz
+
+torch.set_num_threads(2)
+N = 12
+ARGS = ["run", "--device", "cpu", "--source", "dynamic", "--detector", "gt",
+        "--width", "160", "--height", "120", "--frames", str(N),
+        "--seed", "3"]
+N_REF = 24
+REF_ARGS = ["run", "--source", "dynamic", "--detector", "gt", "--width",
+            "160", "--height", "120", "--frames", str(N_REF), "--seed", "3"]
+POS_MAX_M = 6e-3
+POS_RMS_M = 2e-3
+ATE_M = 1e-3
+
+
+def _direct(batch: int, wire: bool):
+    """The system on the command's frames; ``wire``: through the threaded
+    transport's u8 gray / u16 millimetre payloads, as --threaded feeds it."""
+    cfg = SLAMConfig().replace(camera=SLAMConfig().camera.scaled(160, 120))
+    frames = list(synthetic.generate_dynamic_sequence(
+        cfg.camera, N, seed=3, depth_noise=0.004))
+    if wire:
+        frames = [_unpack_frame(_pack_frame(g, d), 120, 160) + tuple(f)
+                  for g, d, *f in frames]
+    cap = cfg.semantic.max_detections
+    dets = [boxes_to_detections(f[5], cap, device="cpu") for f in frames]
+    slam = SLAMSystem(cfg, device="cpu")
+    slam.warmup_place()
+    n_full = N - N % batch if batch else 0
+    for i0 in range(0, n_full, max(batch, 1)):
+        chunk = frames[i0:i0 + batch]
+        slam.process_batch(
+            np.stack([f[0] for f in chunk]), np.stack([f[1] for f in chunk]),
+            np.asarray([f[4] for f in chunk]),
+            detections=Detections(*(torch.stack(xs) for xs in
+                                    zip(*dets[i0:i0 + batch]))))
+    for f, det in zip(frames[n_full:], dets[n_full:]):
+        slam.process(f[0], f[1], f[4], detections=det)
+    slam.finalize()
+    return slam
+
+
+def _tum_lines(slam, tmp_path):
+    stamps, rs, ts = slam.frontend_trajectory()
+    path = tmp_path / "direct.tum"
+    trajectory.write_tum(str(path), stamps, list(zip(rs, ts)))
+    return path.read_text().splitlines()
+
+
+@pytest.mark.parametrize("mode", ["frames", "batch", "threaded"])
+def test_run_writes_the_systems_trajectory(tmp_path, monkeypatch, mode):
+    """Under --threaded the frames are paced (torch_parity.Pacer), so that
+    every frame pairs with its detection as in the direct run."""
+    extra = {"frames": [], "batch": ["--batch", "4"],
+             "threaded": ["--threaded"]}[mode]
+    if mode == "threaded":
+        pacer = Pacer()
+        gen = synthetic.generate_dynamic_sequence
+        monkeypatch.setattr(GTDetector, "__call__",
+                            pacer.wrap(GTDetector.__call__))
+        monkeypatch.setattr(synthetic, "generate_dynamic_sequence",
+                            lambda *a, **k: pacer.frames(gen(*a, **k)))
+    out_dir = tmp_path / "out"
+    res = {}
+    assert cli.main(ARGS + extra + ["--out-dir", str(out_dir)], out=res) == 0
+    monkeypatch.undo()
+    slam = _direct(4 if mode == "batch" else 0, mode == "threaded")
+    got = (out_dir / "frontend.tum").read_text().splitlines()
+    assert len(got) == N
+    assert got == _tum_lines(slam, tmp_path)
+    stats = json.loads((out_dir / "stats.json").read_text())
+    assert stats == res["stats"]
+    assert stats["frames"] == N
+    assert not np.any(res["system"].landmarks_world()["category"] == 1)
+    assert stats["keyframes"] == slam.stats["keyframes"]
+    assert np.isfinite(stats["ate_rmse_m"])
+    for name in ("keyframes.tum", "landmarks.ply", "trajectory.ply"):
+        assert (out_dir / name).stat().st_size > 0
+    if mode == "frames":
+        assert set(stats["stages"]) == {"detector", "frame"}
+        assert stats["stages"]["frame"]["count"] == N
+        assert stats["stages"]["frame"]["median_ms"] > 0
+    if mode == "threaded":
+        assert stats["queue_dropped"] == 0
+
+
+def test_run_matches_the_reference_cli(tmp_path, monkeypatch):
+    """Measured on an AVX-512 host, this comparison run alone under
+    MKL_CBWR AVX2, AVX512 and COMPATIBLE, each with ATEN_CPU_CAPABILITY
+    default and avx2: frontend positions RMS 1.168 mm and worst 1.376 mm
+    (frame 23), keyframe positions RMS 1.132 mm and worst 1.381 mm, under
+    every one of them; ATE 0.05893 m against the reference's 0.05923 m;
+    2,388 landmarks against 2,387; 20 keyframes in both."""
+    monkeypatch.setattr(jcli, "_enable_compilation_cache", lambda: None)
+    assert jcli.main(["--platform", "cpu"] + REF_ARGS
+                     + ["--out-dir", str(tmp_path / "ref")]) == 0
+
+    class Drawn(SLAMSystem):
+        def __init__(self, *a, **k):
+            super().__init__(*a, sampler=JaxSampler(N_REF), **k)
+
+    monkeypatch.setattr(pslam, "SLAMSystem", Drawn)
+    assert cli.main(REF_ARGS + ["--device", "cpu", "--out-dir",
+                                str(tmp_path / "port")]) == 0
+    want = json.loads((tmp_path / "ref" / "stats.json").read_text())
+    got = json.loads((tmp_path / "port" / "stats.json").read_text())
+    assert set(got) == set(want)
+    for key in ("frames", "keyframes", "loop_candidates", "relocalizations",
+                "ba_runs", "ba_converged"):
+        assert got[key] == want[key], key
+    assert abs(got["landmarks"] - want["landmarks"]) <= 0.02 * want[
+        "landmarks"]
+    assert got["frames"] == N_REF
+    assert abs(got["ate_rmse_m"] - want["ate_rmse_m"]) <= ATE_M
+    assert set(got["stages"]) == set(want["stages"]) == {"detector",
+                                                         "frame"}
+    for name, entry in want["stages"].items():
+        assert set(got["stages"][name]) == set(entry) | {"median_ms",
+                                                         "p90_ms"}
+        assert got["stages"][name]["count"] == entry["count"] == N_REF
+    for name in ("frontend.tum", "keyframes.tum"):
+        w_st, w_t = jtraj.read_tum(str(tmp_path / "ref" / name))
+        g_st, g_t = trajectory.read_tum(str(tmp_path / "port" / name))
+        np.testing.assert_array_equal(g_st, w_st)
+        err = np.linalg.norm(g_t - w_t, axis=1)
+        assert err.max() <= POS_MAX_M, (name, err.max(), err.argmax())
+        assert np.sqrt(np.mean(err ** 2)) <= POS_RMS_M, name
+
+
+def test_run_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([a for a in ARGS if a not in ("--device", "cpu")]
+                 + ["--out-dir", str(tmp_path)])
+
+
+def test_gt_detector_needs_the_dynamic_source(tmp_path):
+    args = ["run", "--device", "cpu", "--source", "synthetic", "--detector",
+            "gt", "--out-dir", str(tmp_path)]
+    assert cli.main(args) == 2
+
+
+def _rotations(rng, n):
+    """Random rotations, plus half-turns about each axis (each branch of
+    the quaternion extraction)."""
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    r = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+    flips = [np.diag(d) for d in ([1., -1, -1], [-1., 1, -1], [-1., -1, 1])]
+    return np.concatenate([r, np.stack(flips)])
+
+
+def test_tum_trajectory_files_match_reference(tmp_path):
+    rng = np.random.default_rng(7)
+    rs = _rotations(rng, 40)
+    ts = rng.normal(size=(len(rs), 3))
+    stamps = 1305031102.175304 + np.arange(len(rs)) / 30.0
+    for r in rs:
+        np.testing.assert_array_equal(trajectory.quat_from_mat(r),
+                                      jtraj.quat_from_mat(r))
+    trajectory.write_tum(str(tmp_path / "port.tum"), stamps,
+                         list(zip(rs, ts)))
+    jtraj.write_tum(str(tmp_path / "ref.tum"), stamps, list(zip(rs, ts)))
+    text = (tmp_path / "port.tum").read_text()
+    assert text == (tmp_path / "ref.tum").read_text()
+    assert len(text.splitlines()) == len(rs)
+    for got, want in zip(trajectory.read_tum(str(tmp_path / "port.tum")),
+                         jtraj.read_tum(str(tmp_path / "port.tum"))):
+        np.testing.assert_array_equal(got, want)
+    gt = ts + rng.normal(scale=0.01, size=ts.shape)
+    r, t = trajectory.umeyama_alignment(ts, gt)
+    jr, jt, s = jtraj.umeyama_alignment(ts, gt)
+    assert s == 1.0
+    np.testing.assert_allclose(r, jr, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(t, jt, rtol=0, atol=1e-12)
+    assert abs(trajectory.ate_rmse(ts, gt) - jtraj.ate_rmse(ts, gt)) < 1e-12
+
+
+def test_viz_outputs_match_reference(tmp_path):
+    rng = np.random.default_rng(8)
+    xyz = rng.normal(size=(50, 3)).astype(np.float32)
+    n_obs = rng.integers(0, 4, 50).astype(np.int32)
+    txyz = rng.normal(size=(30, 3))
+    for name, port_fn, ref_fn, args in (
+            ("landmarks", viz.landmarks_to_ply, jviz.landmarks_to_ply,
+             (xyz, n_obs)),
+            ("trajectory", viz.trajectory_to_ply, jviz.trajectory_to_ply,
+             (txyz,))):
+        port_fn(str(tmp_path / f"{name}_port.ply"), *args)
+        ref_fn(str(tmp_path / f"{name}_ref.ply"), *args)
+        assert (tmp_path / f"{name}_port.ply").read_bytes() == \
+            (tmp_path / f"{name}_ref.ply").read_bytes(), name
+    gray = rng.uniform(0, 255, (120, 160)).astype(np.float32)
+    uv = rng.uniform(-5, 170, (40, 2)).astype(np.float32)
+    np.testing.assert_array_equal(viz.annotate_features(gray, uv),
+                                  jviz.annotate_features(gray, uv))
+
+
+def test_tum_dataset_matches_reference(tmp_path):
+    """A small TUM RGB-D directory: jittered rgb and depth stamps (one
+    depth frame missing), 8-bit colour and 16-bit depth PNGs, a ground
+    truth at its own rate."""
+    import cv2
+    rng = np.random.default_rng(9)
+    (tmp_path / "rgb").mkdir()
+    (tmp_path / "depth").mkdir()
+    rgb_lines, depth_lines = ["# color images"], ["# depth maps"]
+    for i in range(8):
+        t = 100.0 + i / 30.0
+        name = f"{t:.6f}.png"
+        cv2.imwrite(str(tmp_path / "rgb" / name),
+                    rng.integers(0, 256, (24, 32, 3), dtype=np.uint8))
+        rgb_lines.append(f"{t:.6f} rgb/{name}")
+        if i != 5:
+            td = t + rng.uniform(-0.012, 0.012)
+            dname = f"{td:.6f}.png"
+            cv2.imwrite(str(tmp_path / "depth" / dname),
+                        rng.integers(0, 20000, (24, 32), dtype=np.uint16))
+            depth_lines.append(f"{td:.6f} depth/{dname}")
+    (tmp_path / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
+    (tmp_path / "depth.txt").write_text("\n".join(depth_lines) + "\n")
+    gt_stamps = 99.9 + np.arange(40) / 100.0
+    jtraj.write_tum(str(tmp_path / "groundtruth.txt"), gt_stamps,
+                    list(zip(_rotations(rng, 37), rng.normal(size=(40, 3)))))
+    got, want = tum.TUMDataset(str(tmp_path)), jtum.TUMDataset(str(tmp_path))
+    assert got.pairs == want.pairs and len(got) == len(want) == 7
+    np.testing.assert_array_equal(got.groundtruth, want.groundtruth)
+    n = 0
+    for g, w in zip(got.frames(limit=6), want.frames(limit=6)):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+        n += 1
+    assert n == 6
+    stamps = np.asarray([p[0] for p in got.pairs])
+    np.testing.assert_array_equal(got.gt_positions_at(stamps),
+                                  want.gt_positions_at(stamps))
+
+
+def test_stage_timer_matches_reference(monkeypatch):
+    """Both timers on one scripted clock: the reference's summary, and the
+    port's median and 90th percentile of the samples after the first."""
+    durations = [0.25, 0.01, 0.03, 0.02, 0.05, 0.04, 0.02, 0.06]
+    clock = [0.0]
+
+    def fake_clock():
+        return clock[0]
+
+    monkeypatch.setattr(time, "perf_counter", fake_clock)
+    port, ref = profiling.StageTimer(), jprof.StageTimer()
+    for i, d in enumerate(durations):
+        for timer in (port, ref):
+            for name, scale in (("frame", 1.0), ("detector", 0.5)):
+                if name == "detector" and i % 3 == 1:
+                    continue
+                with timer.stage(name):
+                    clock[0] += d * scale
+    got, want = port.summary(), ref.summary()
+    assert list(got) == list(want) == ["frame", "detector"]
+    for name, entry in want.items():
+        extra = {k: got[name].pop(k) for k in ("median_ms", "p90_ms")}
+        assert got[name] == entry
+        samples = np.asarray(port.samples_ms[name])
+        assert len(samples) == entry["count"] - 1
+        assert extra == dict(median_ms=round(float(np.median(samples)), 3),
+                             p90_ms=round(float(np.percentile(samples, 90)),
+                                          3))

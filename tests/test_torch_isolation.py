@@ -2,7 +2,8 @@
 imports JAX or anything of the JAX package; its entry points default to the
 card and raise without one; its kernels are built without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
-query, loop verification, the pose-graph loop correction) never read a value
+query, loop verification, the pose-graph loop correction, the detector's
+network and NMS) never read a value
 back to the host nor build a tensor from host data, either of which makes
 the host wait for the card (tests/test_torch_kernels_cuda.py checks the same
 on the card with torch's sync debug mode)."""
@@ -18,12 +19,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from dynamic_visual_slam_tpu_torch import kernels
+from dynamic_visual_slam_tpu_torch import convert, kernels
 from dynamic_visual_slam_tpu_torch.backend import ba, mapping
 from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
+from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fields
 from dynamic_visual_slam_tpu_torch.pipeline import slam as pslam
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
@@ -59,7 +61,10 @@ def test_no_jax_or_reference_imports():
     files = _port_files()
     assert len(files) > 20
     for new in ("place/bow.py", "backend/pose_graph.py", "io/synthetic.py",
-                "convert.py", "pipeline/slam.py"):
+                "convert.py", "pipeline/slam.py", "models/yolov8.py",
+                "semantic/detector.py", "pipeline/runner.py",
+                "pipeline/sync.py", "cli.py", "io/tum.py", "utils/viz.py",
+                "utils/profiling.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
@@ -179,14 +184,21 @@ def stage_inputs():
     db = bow.Database(bow.load_vocabulary(
         str(ROOT / "assets" / "orbvoc_synth.npz"), "cpu"), capacity=16)
     db.add(blocks[0].desc_bits, blocks[0].mask)
-    return dict(cfg=cfg, grays=grays, depths=depths, stamps=stamps, kps=kps,
+    yolo = yolov8.YOLOv8()
+    yolo.load_state_dict(convert.yolo_state_dict(convert.load_params(
+        str(ROOT / "assets" / "yolov8n_synth.npz"))))
+    canvas = torch.rand((128, 128, 3), generator=torch.Generator()
+                        .manual_seed(0))
+    return dict(yolo=yolo.eval(), canvas=canvas,
+                cfg=cfg, grays=grays, depths=depths, stamps=stamps, kps=kps,
                 sampler=sampler, det=det, filt=filt, blocks=blocks,
                 block=blocks[-1], state=state, db=db,
                 tstate=tracker.init_state(cfg, "cpu"))
 
 
 @pytest.mark.parametrize("stage", ["extract", "track", "insert", "ba",
-                                   "track_step", "bow", "verify", "pgo"])
+                                   "track_step", "bow", "verify", "pgo",
+                                   "detect"])
 def test_device_stages_make_no_host_round_trip(stage_inputs, stage):
     x = stage_inputs
     cfg = x["cfg"]
@@ -212,6 +224,9 @@ def test_device_stages_make_no_host_round_trip(stage_inputs, stage):
                 cfg, x["tstate"], x["grays"][0], x["depths"][0],
                 x["stamps"][0], x["sampler"])
             out = res.keyframe.mask
+        elif stage == "detect":
+            res = yolov8.detect(x["yolo"], x["canvas"], 32)
+            out = res.valid | ~res.valid
         elif stage == "bow":
             b = x["block"]
             x["db"].add(b.desc_bits, b.mask)

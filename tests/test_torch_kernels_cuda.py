@@ -7,10 +7,12 @@ the port (no JAX), so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_kernels_cuda.py
 
-Tolerance: none.  Scores, moments and descriptor bits are exact in both
-versions (min, max and differences of float32 values; integer-valued
-moments; the descriptor angle arithmetic is rounded identically), so the
-kernels must equal the plain versions bit for bit.
+Tolerance: none for the kernels.  Scores, moments and descriptor bits are
+exact in both versions (min, max and differences of float32 values;
+integer-valued moments; the descriptor angle arithmetic is rounded
+identically), so the kernels must equal the plain versions bit for bit.
+The YOLOv8n module (cuDNN convolutions, not a kernel of the port) is held
+to the CPU within tests/test_torch_yolo.py's bound.
 ``chip_smoke.py`` repeats the comparison at the main path's 720p shapes.
 """
 
@@ -269,3 +271,39 @@ def test_device_stages_do_not_synchronise(sequence):
     torch.cuda.synchronize()
     assert bool(landmarks.active.any())
     assert float(res.final_cost) <= float(res.initial_cost)
+
+
+@pytest.mark.cuda
+def test_yolo_on_the_card_matches_the_cpu(card):
+    """YOLOv8n with the shipped weights on one rendered 720p walker frame,
+    letterboxed to 640: per scale, box and class logits within 2 % of the
+    scale's largest magnitude (tests/test_torch_yolo.py's bound against the
+    reference: cuDNN sums in another order, and a bf16 activation can round
+    to its neighbour), and the same detection classes."""
+    from dynamic_visual_slam_tpu_torch import convert
+    from dynamic_visual_slam_tpu_torch.models import yolov8
+    from dynamic_visual_slam_tpu_torch.semantic.detector import letterbox
+
+    params = convert.load_params(str(Path(__file__).resolve().parent.parent
+                                     / "assets" / "yolov8n_synth.npz"))
+    cpu = yolov8.YOLOv8()
+    cpu.load_state_dict(convert.yolo_state_dict(params))
+    cpu.eval()
+    gpu = yolov8.YOLOv8()
+    gpu.load_state_dict(convert.yolo_state_dict(params))
+    gpu.eval().cuda()
+    cam = SLAMConfig().camera
+    gray = next(synthetic.generate_dynamic_sequence(cam, 1, seed=0))[0]
+    canvas = letterbox(np.stack([gray] * 3, -1), 640, "cpu")[0]
+    x = canvas.permute(2, 0, 1)[None]
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.cuda())
+    for (wb, wc), (gb, gc) in zip(want, got):
+        for w, g in ((wb, gb), (wc, gc)):
+            assert float((g.cpu() - w).abs().max()) <= \
+                0.02 * float(w.abs().max())
+    dw = yolov8.detect(cpu, canvas)
+    dg = yolov8.detect(gpu, canvas.cuda())
+    assert sorted(dg.classes[dg.valid].tolist()) == \
+        sorted(dw.classes[dw.valid].tolist())

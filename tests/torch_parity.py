@@ -4,6 +4,7 @@ reference: same inputs, same RANSAC draws, numpy in between."""
 from __future__ import annotations
 
 import functools
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -75,3 +76,33 @@ class JaxSampler:
         if stage == "loop_pnp":
             return jax.random.fold_in(jax.random.key(f), 1)
         return self.keys[stage][f]
+
+
+class Pacer:
+    """Paces a threaded run so that ApproximateTime pairs every frame with
+    its detection: ``frames`` hands out frame k only once the detector has
+    answered frames 0..k-1.  Then at most two frames wait for their
+    detections, never more than the pairing's ``timeout_entries``, and the
+    threaded run sees the detections the synchronous run sees however slow
+    the detector thread is scheduled.  ``wrap`` counts a detector's answers
+    (its call keeps the detector's stamp parameter)."""
+
+    def __init__(self, timeout_s: float = 120.0):
+        self.timeout_s = timeout_s
+        self.answered = 0
+        self._cv = threading.Condition()
+
+    def wrap(self, call):
+        def paced(det_self, rgb, stamp=None):
+            out = call(det_self, rgb, stamp)
+            with self._cv:
+                self.answered += 1
+                self._cv.notify_all()
+            return out
+        return paced
+
+    def frames(self, frames):
+        for k, f in enumerate(frames):
+            with self._cv:
+                self._cv.wait_for(lambda: self.answered >= k, self.timeout_s)
+            yield f
