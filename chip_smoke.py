@@ -30,7 +30,27 @@ Phases (one JSON line each, prefixed "phase"):
            verified and applied;
   place_batch   bench.py's place stage on the port: the shipped vocabulary,
            place recognition on, the 6-frame 720p fixture cycled, 72
-           warm-up frames then 240 timed ones in batches of 24;
+           warm-up frames then 120 timed ones in batches of 24 (bench.py
+           times 240; cut for the script's time limit);
+  fleet_small  tests/test_parallel.py's fleet checks on the card (160x120,
+           2 streams): stream 0 against a solo SLAMSystem.process run with
+           the same draws (first 3 frames within 1e-5 m, all within 2 cm
+           and 0.5 deg, keyframes within 1, landmarks within max(20,
+           10 %)); step_batch against T step() calls (1e-6 m, flags equal,
+           nothing dropped with kf_slots = T);
+  fleet    bench.py's _fleet_bench on the port: SLAMFleet(SLAMConfig()),
+           8 streams at 720p, each offset by its index in the 6-frame
+           cycle, step_batch calls of 24 scan steps: one warm-up call and
+           one run_ba, then 5 timed calls; aggregate fps, BA rounds and
+           per-stream counters; launches of one scan step (a step() call)
+           under torch.profiler at B = 8 against B = 1 (stream 0's
+           frame), which must stay below twice; B1 and B2 must launch
+           once a scan step;
+  snapshot place_small's fixture with place recognition on: the first
+           half through process(), save(), restore() into a fresh system,
+           both continue: flags equal, positions within 1e-6 m (else the
+           first frame and output that differ); then cli run --save-state
+           and --resume at 720p;
   yolo     YoloDetector with the shipped weights on three rendered 720p
            walker frames, on the card and on the CPU, at 640 (the config's
            input size) and at 256 (the size the weights embed, which the
@@ -43,11 +63,15 @@ Phases (one JSON line each, prefixed "phase"):
            boxes and with the learned detector; tests/test_dynamic.py's
            limits on ATE and walker landmarks;
   dynamic_frames  cli.main(["run", "--source", "dynamic", "--detector",
-           "yolov8", ...]) in-process at 720p with every default on: fps,
-           the detector and frame stages, ATE, walker and person landmarks.
-The kernels' launch counters are reset just before main, place_frames,
-place_batch, dynamic_small and dynamic_frames are driven and read just
-after; B1 and B2 must have launched in each.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
+           "yolov8", ...]) in-process at 720p with every default on, 64
+           frames (cut from 120 for the script's time limit): fps, the
+           detector and frame stages, ATE, walker and person landmarks.
+The kernels' launch counters are reset just before main, fleet_small,
+fleet, snapshot, place_frames, place_batch, dynamic_small and
+dynamic_frames are driven and read just after; B1 and B2 must have
+launched in each.  The kernels phase also holds B1 and B2 at the fleet's
+shape (8 frames) and prints how many blurred pixels differ between the
+card and the CPU.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line.  Imports nothing of JAX or of the JAX package.
 """
@@ -55,11 +79,13 @@ line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -72,11 +98,12 @@ import torch
 from dynamic_visual_slam_tpu_torch import cli, convert, kernels
 from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
                                                   SLAMConfig)
-from dynamic_visual_slam_tpu_torch.frontend import orb
+from dynamic_visual_slam_tpu_torch.frontend import orb, ransac
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
+from dynamic_visual_slam_tpu_torch.parallel.mesh import SLAMFleet
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 from dynamic_visual_slam_tpu_torch.semantic.detector import (
     YoloDetector, boxes_to_detections)
@@ -108,7 +135,7 @@ WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA roun
 TIMED_BATCHES = 10             # 240 frames, BA fires on its 2 s tick
 ORBIT_FRAMES = 240             # place_frames: frames per orbit (two orbits)
 PLACE_SYNC_EVERY = 3           # place_batch: bench.py's default
-PLACE_TIMED = 240              # place_batch: timed frames, as bench.py
+PLACE_TIMED = 120              # place_batch: timed frames (bench.py: 240)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB = os.path.join(ROOT, "assets", "orbvoc_synth.npz")
 YOLO_WEIGHTS = os.path.join(ROOT, "assets", "yolov8n_synth.npz")
@@ -120,7 +147,12 @@ YOLO_WEIGHTS = os.path.join(ROOT, "assets", "yolov8n_synth.npz")
 YOLO_CANDIDATE_TOL_PX = {256: 2.75, 640: 4.3}
 YOLO_BOX_TOL_PX = {256: 1.5, 640: 4.3}
 DYNAMIC_SMALL_FRAMES = 180     # semantic/train.in_loop_eval's default
-DYNAMIC_FRAMES = 120           # dynamic_frames: 720p frames
+DYNAMIC_FRAMES = 64            # dynamic_frames: 720p frames
+FLEET_STREAMS = 8              # fleet: bench.py's _fleet_bench
+FLEET_T = 24                   # fleet: scan steps a step_batch call
+FLEET_TIMED = 5                # fleet: timed step_batch calls
+FLEET_SMALL_FRAMES = 14        # fleet_small: tests/test_parallel.py's
+SNAPSHOT_CLI_FRAMES = 6        # snapshot: 720p frames a cli run
 T_START = time.perf_counter()
 
 
@@ -133,6 +165,12 @@ def emit(phase: str, **kw) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def sync(device) -> None:
+    """Wait for the card (a no-op on the CPU, where phases are rehearsed)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int = 7) -> float:
@@ -282,6 +320,31 @@ def phase_kernels(frames, cfg: SLAMConfig):
     # add rate: 2 multiplies and 2 adds a disc pixel, ~8 a sample, 1 a bit
     b2_bound, b2_by = bound(n_kp * (4 * n_disc + 4 * 512 + 16 + 256 + 8),
                             {"fadd": n_kp * (4 * n_disc + 8 * 512 + 256)})
+    # --- B1 and B2 at the fleet's shape: 8 frames a launch ----------------
+    lv8 = [lv[:FLEET_STREAMS].contiguous() for lv in levels]
+    got8 = fields.fast_score_batch(lv8)
+    _, in8 = orb.detect_batch(lv8, got8, cfg.orb)
+    ok8 = all(torch.equal(g, fast.corner_score(lv)) for g, lv in
+              zip(got8, lv8)) and all(torch.equal(a, b) for a, b in zip(
+                  descriptors.descriptors_moments(*in8),
+                  descriptors.descriptors_moments_plain(*in8)))
+    if not ok8:
+        fail("kernels: B1 or B2 differs from its plain version at the "
+             f"fleet's shape ({FLEET_STREAMS} frames)")
+    fleet_shape = dict(
+        frames=FLEET_STREAMS, px=sum(lv.numel() for lv in lv8),
+        slots=int(in8.level.numel()),
+        fast_score_ms=cuda_ms(lambda: fields.fast_score_batch(lv8)),
+        orb_desc_moments_ms=cuda_ms(
+            lambda: descriptors.descriptors_moments(*in8)))
+    # --- the rounded blur (torch.matmul): card against the CPU -------------
+    blur_raw = blur_round = 0
+    for lv in levels:
+        g = imops.gaussian_blur(lv, 7, 2.0).cpu()
+        c = imops.gaussian_blur(lv.cpu(), 7, 2.0)
+        blur_raw += int((g != c).sum())
+        blur_round += int((torch.clamp(torch.round(g), 0, 255)
+                           != torch.clamp(torch.round(c), 0, 255)).sum())
     rows = [
         dict(name="fast_score", route="cuda",
              source="dynamic_visual_slam_tpu_torch/csrc/fast_score.cu",
@@ -302,7 +365,10 @@ def phase_kernels(frames, cfg: SLAMConfig):
              bound_ms=b3_bound, bound_by=b3_by, library_ms=None,
              shape="one 1280x720 frame (and 479x641, fractional)"),
     ]
-    emit("kernels", kernels=rows, fast_instr=fast_instr(levels))
+    emit("kernels", kernels=rows, fast_instr=fast_instr(levels),
+         fleet_shape=fleet_shape,
+         blur_card_vs_cpu=dict(pixels=n_px, differ=blur_raw,
+                               differ_rounded=blur_round))
     return rows
 
 
@@ -438,10 +504,11 @@ def check_launches(phase: str, launches) -> None:
             fail(f"{phase}: kernel {name} was not launched")
 
 
-def phase_place_small():
-    """tests/test_reloc.py's fixture and system arguments on the card: a
-    wandering segment, 6 blank frames while the camera jumps back, then a
-    replay of the segment from its 10th frame."""
+def place_small_setup():
+    """tests/test_reloc.py's fixture and system arguments: a wandering
+    segment, 6 blank frames while the camera jumps back, then a replay of
+    the segment from its 10th frame.  → (config, [(gray, depth, t_gt)],
+    SLAMSystem keyword arguments)."""
     cam = CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
                        cx=79.5, cy=59.5)
     base = SLAMConfig()
@@ -456,9 +523,15 @@ def phase_place_small():
     frames = [(g, d, t) for g, d, _, t, _ in seg]
     frames += [(blank, np.ones_like(blank), None)] * 6
     frames += [(g, d, t) for g, d, _, t, _ in seg[10:]]
-    slam = SLAMSystem(cfg, vocab_train_keyframes=3, loop_min_gap=4,
-                      loop_min_score=0.08, loop_min_inliers=20,
-                      loop_correction=False, device="cuda")
+    return cfg, frames, dict(vocab_train_keyframes=3, loop_min_gap=4,
+                             loop_min_score=0.08, loop_min_inliers=20,
+                             loop_correction=False)
+
+
+def phase_place_small():
+    """place_small_setup's run on the card: it must relocalize."""
+    cfg, frames, kw = place_small_setup()
+    slam = SLAMSystem(cfg, device="cuda", **kw)
     t0 = time.perf_counter()
     for i, (g, d, _) in enumerate(frames):
         slam.process(g, d, i / 30.0)
@@ -477,20 +550,39 @@ def phase_place_small():
         fail(f"place_small: replay ATE {ate} >= 0.15")
 
 
-def revisit_frames(cam: CameraConfig, n_orbit: int, drift: float = 0.35):
-    """scripts/loop720p.py's fixture: the seed-5 scene, two orbits of
-    loop_trajectory (radius 0.35, then 0.34), depth scaled by up to
-    1 + drift over the run.  → [(gray u8, depth mm u16, t_gt)]."""
+def _render_revisit(cam: CameraConfig, first: int, poses, n_total: int,
+                    drift: float):
+    """Frames first .. first+len(poses)-1 of revisit_frames (a worker's
+    share)."""
     scene = synthetic.SyntheticScene(cam, seed=5)
-    poses = synthetic.loop_trajectory(n_orbit) + \
-        synthetic.loop_trajectory(n_orbit, radius=0.34)
     out = []
-    for i, (r, t) in enumerate(poses):
+    for i, (r, t) in enumerate(poses, start=first):
         gray, depth = scene.render(r, t)
-        scale = 1.0 + drift * i / len(poses)
+        scale = 1.0 + drift * i / n_total
         out.append((gray.astype(np.uint8),
                     (depth * scale * 1000.0).astype(np.uint16), t))
     return out
+
+
+def revisit_frames(cam: CameraConfig, n_orbit: int, drift: float = 0.35):
+    """scripts/loop720p.py's fixture: the seed-5 scene, two orbits of
+    loop_trajectory (radius 0.35, then 0.34), depth scaled by up to
+    1 + drift over the run.  → [(gray u8, depth mm u16, t_gt)].  The host
+    renders a 720p frame in about half a second, so contiguous shares of
+    the frames render in worker processes (spawned; the same scene in
+    each)."""
+    poses = synthetic.loop_trajectory(n_orbit) + \
+        synthetic.loop_trajectory(n_orbit, radius=0.34)
+    n = len(poses)
+    k = max(1, min(8, os.cpu_count() or 1, n))
+    cuts = [n * j // k for j in range(k + 1)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(k, mp_context=ctx) as pool:
+        parts = list(pool.map(
+            _render_revisit, [cam] * k, cuts[:-1],
+            [poses[a:b] for a, b in zip(cuts, cuts[1:])], [n] * k,
+            [drift] * k))
+    return [f for part in parts for f in part]
 
 
 def phase_place_frames(cfg: SLAMConfig):
@@ -859,6 +951,282 @@ def phase_dynamic_frames():
     check_launches("dynamic_frames", res["launches"])
 
 
+def fleet_config() -> SLAMConfig:
+    """tests/test_parallel.py's fleet fixture: 160x120, a small map."""
+    cam = CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
+                       cx=79.5, cy=59.5)
+    return SLAMConfig().replace(
+        camera=cam, map=MapConfig(max_landmarks=256, max_keyframes=8,
+                                  max_obs_per_landmark=4,
+                                  max_obs_per_keyframe=128))
+
+
+STAGES = ("fm", "pnp", "anchor")
+
+
+def keyed_draws(device):
+    """(fleet sampler, solo sampler of stream 0): the minimal sets of
+    (stream, frame, stage) drawn from a generator seeded with that key, so
+    a fleet's stream and a solo system on its frames draw the same sets."""
+    gen = torch.Generator(device=device)
+
+    def draw(stream, frame, stage, n_hyp, size, count):
+        gen.manual_seed((stream * 1_000_003 + frame) * len(STAGES)
+                        + STAGES.index(stage))
+        return ransac.sample_indices(gen, n_hyp, size, count)
+
+    def fleet(stage, streams, frame_ids, n_hyp, size, count):
+        return torch.cat([draw(s, f, stage, n_hyp, size, count[i:i + 1])
+                          for i, (s, f) in enumerate(zip(
+                              streams.tolist(), frame_ids.tolist()))])
+
+    def solo(stage, frame_ids, n_hyp, size, count):
+        return draw(0, int(frame_ids[0]), stage, n_hyp, size, count)
+    return fleet, solo
+
+
+def phase_fleet_small(device="cuda"):
+    """tests/test_parallel.py's fleet checks on the card: 2 streams (seeds
+    3 and 7) at 160x120; stream 0 against a solo SLAMSystem.process run on
+    its frames with the same draws (place recognition off), with that
+    test's bounds; then step_batch against T step() calls."""
+    cfg = fleet_config()
+    n = FLEET_SMALL_FRAMES
+    seqs = [list(synthetic.generate_sequence(cfg.camera, n, seed=s))
+            for s in (3, 7)]
+    grays = np.stack([[q[i][0] for q in seqs] for i in range(n)]
+                     ).astype(np.uint8)
+    depths = np.stack([[q[i][1] for q in seqs] for i in range(n)]
+                      ).astype(np.float32)
+    stamps = np.asarray([[q[i][4] for q in seqs] for i in range(n)],
+                        np.float32)
+    fleet_draws, solo_draws = keyed_draws(device)
+    fleet = SLAMFleet(cfg, 2, device=device, sampler=fleet_draws)
+    solo = SLAMSystem(cfg, enable_place_recognition=False, device=device,
+                      sampler=solo_draws)
+    kernels.reset_launch_counts()
+    rows = []
+    for i in range(n):
+        out = fleet.step(grays[i], depths[i], stamps[i], auto_ba=False)
+        rows.append((out.t_wc[0].cpu().numpy(), out.q_wc[0].cpu().numpy()))
+        solo.process(grays[i, 0], depths[i, 0], float(stamps[i, 0]))
+    solo.finalize()
+    sync(device)
+    launches = dict(kernels.launches)
+    t_f = np.stack([r[0] for r in rows])
+    t_s = np.stack([f.t_wc for f in solo.trajectory])
+    err = np.linalg.norm(t_f - t_s, axis=1)
+    dots = np.abs(np.sum(np.stack([r[1] for r in rows])
+                         * np.stack([f.q_wc for f in solo.trajectory]), 1))
+    ang = float(np.degrees(2 * np.arccos(np.clip(dots, -1, 1))).max())
+    st = fleet.stats()
+    lm_solo = int(solo.map_state.landmarks.active.sum())
+    # step_batch against T step() calls (default draws, the same order)
+    f1 = SLAMFleet(cfg, 2, kf_slots=n, device=device)
+    telems = f1.step_batch(grays, depths, stamps, auto_ba=False).cpu().numpy()
+    f2 = SLAMFleet(cfg, 2, device=device)
+    outs = [f2.step(grays[i], depths[i], stamps[i], auto_ba=False)
+            for i in range(n)]
+    t_step = np.stack([o.t_wc.cpu().numpy() for o in outs])
+    kf_step = np.stack([o.is_keyframe.cpu().numpy() for o in outs])
+    batch_err = float(np.linalg.norm(t_step - telems[..., 4:7], axis=-1).max())
+    dropped = f1.stats()["keyframes_dropped"]
+    emit("fleet_small", frames=n, streams=2, pos_err_m=err.tolist(),
+         rot_err_deg=ang, keyframes_fleet=st["keyframes"][0],
+         keyframes_solo=solo.stats["keyframes"],
+         landmarks_fleet=st["landmarks_active"][0], landmarks_solo=lm_solo,
+         step_batch_err_m=batch_err, step_batch_dropped=dropped,
+         launches=launches)
+    checks = [
+        (err[:3].max() < 1e-5, f"first 3 frames {err[:3].max()} m >= 1e-5"),
+        (err.max() < 2e-2, f"positions {err.max()} m >= 0.02"),
+        (ang < 0.5, f"rotations {ang} deg >= 0.5"),
+        (abs(st["keyframes"][0] - solo.stats["keyframes"]) <= 1,
+         f"keyframes {st['keyframes'][0]} vs {solo.stats['keyframes']}"),
+        (abs(st["landmarks_active"][0] - lm_solo) <= max(20, lm_solo // 10),
+         f"landmarks {st['landmarks_active'][0]} vs {lm_solo}"),
+        (batch_err < 1e-6, f"step_batch vs step {batch_err} m >= 1e-6"),
+        (np.array_equal(kf_step, telems[..., 8] > 0.5),
+         "step_batch keyframe flags differ from step's"),
+        (dropped == [0, 0], f"step_batch dropped {dropped}"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        fail("fleet_small: " + "; ".join(bad))
+    check_launches("fleet_small", launches)
+
+
+def fleet_batch(frames, i0: int, streams: int, device="cuda"):
+    """bench.py's _fleet_bench input: FLEET_T scan steps of ``streams``
+    720p streams, stream s offset by s frames in the 6-frame cycle, on the
+    card; stamps (i0 + t) / 30."""
+    idx = [[(i0 + t + s) % len(frames) for s in range(streams)]
+           for t in range(FLEET_T)]
+    gs = torch.from_numpy(np.stack([[frames[j][0] for j in r] for r in idx]))
+    ds = torch.from_numpy(np.stack([[frames[j][1] for j in r] for r in idx]))
+    ts = np.repeat(((i0 + np.arange(FLEET_T)) / 30.0)[:, None], streams, 1)
+    return gs.to(device), ds.to(device), ts
+
+
+def profile_launches(fn, device="cuda"):
+    """(kernel launches, device ms, wall ms) of fn() under torch.profiler,
+    ended by sync(device)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    launches, device_us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += ev.count
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev = getattr(ev, "self_device_time_total", None)
+            device_us += ev.self_cuda_time_total if dev is None else dev
+    return launches, device_us / 1e3, wall
+
+
+def phase_fleet(frames, cfg: SLAMConfig, device="cuda"):
+    """bench.py's _fleet_bench on the port: 8 streams at 720p, step_batch
+    calls of 24 scan steps; one warm-up call and one run_ba, then 5 timed
+    calls ending in sync(device).  Then launches a scan step
+    under torch.profiler at B = 8 and at B = 1 (stream 0's frames)."""
+    b = FLEET_STREAMS
+    fleet = SLAMFleet(cfg, b, device=device)
+    t0 = time.perf_counter()
+    fleet.step_batch(*fleet_batch(frames, 0, b, device))
+    fleet.run_ba(float(FLEET_T - 1) / 30.0)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    staged = [fleet_batch(frames, (k + 1) * FLEET_T, b, device)
+              for k in range(FLEET_TIMED)]
+    sync(device)
+    ba_before = fleet.ba_runs
+    kernels.reset_launch_counts()
+    per_call, telems = [], []
+    t1 = time.perf_counter()
+    for gs, ds, ts in staged:
+        tc = time.perf_counter()
+        telems.append(fleet.step_batch(gs, ds, ts))
+        per_call.append((time.perf_counter() - tc) * 1e3)
+    sync(device)
+    dt = time.perf_counter() - t1
+    launches = dict(kernels.launches)
+    st = fleet.stats()
+    finite = all(bool(torch.isfinite(t).all()) for t in telems) and all(
+        np.isfinite(st.get("last_ba_costs", [0.0])))
+    # launches a scan step (one step(): extraction, tracker and masked
+    # insert for every stream), B = 8 against B = 1 on stream 0's frame, in
+    # this run; a step, not a whole step_batch call, keeps the profiler's
+    # bookkeeping to some 12,000 launches
+    gs, ds, ts = fleet_batch(frames, (FLEET_TIMED + 1) * FLEET_T, b, device)
+    n8, dev8, wall8 = profile_launches(
+        lambda: fleet.step(gs[0], ds[0], ts[0], auto_ba=False), device)
+    solo = SLAMFleet(cfg, 1, device=device)
+    solo.step_batch(*fleet_batch(frames, 0, 1, device), auto_ba=False)
+    n1, dev1, wall1 = profile_launches(
+        lambda: solo.step(gs[0, :1], ds[0, :1], ts[0, :1], auto_ba=False),
+        device)
+    n_frames = FLEET_TIMED * FLEET_T * b
+    emit("fleet", streams=b, scan_steps=FLEET_T, timed_calls=FLEET_TIMED,
+         aggregate_fps=n_frames / dt, ms_per_step_batch=dt * 1e3 / FLEET_TIMED,
+         ms_per_call_host=per_call, warmup_s=warm_s, ba_runs=fleet.ba_runs,
+         ba_runs_timed=fleet.ba_runs - ba_before, keyframes=st["keyframes"],
+         landmarks=st["landmarks_active"],
+         keyframes_dropped=st["keyframes_dropped"],
+         last_ba_costs=st.get("last_ba_costs"), launches=launches,
+         launches_per_scan_step={f"B{b}": n8, "B1": n1},
+         profiled_step={f"B{b}": dict(wall_ms=wall8, device_ms=dev8,
+                                   busy_share=dev8 / wall8),
+                        "B1": dict(wall_ms=wall1, device_ms=dev1,
+                                   busy_share=dev1 / wall1)},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+         if device == "cuda" else None)
+    if not finite:
+        fail("fleet: a pose or BA cost is not finite")
+    for name in kernels.SOURCES:
+        if launches.get(name, 0) != FLEET_TIMED * FLEET_T:
+            fail(f"fleet: kernel {name} launched {launches.get(name, 0)} "
+                 f"times for {FLEET_TIMED * FLEET_T} scan steps")
+    if fleet.ba_runs < 1:
+        fail("fleet: no BA round ran")
+    if not n8 < 2 * n1:
+        fail(f"fleet: {n8} launches a scan step at B = {b}, {n1} at B = 1 "
+             "(must stay below twice)")
+    return launches
+
+
+def first_divergence(ra, rb):
+    """The first frame where two runs' FrameResults differ, and the first
+    output that differs there, in stage order."""
+    for i, (fa, fb) in enumerate(zip(ra, rb)):
+        for name in ("n_features", "n_matches", "n_inliers", "tracking_ok",
+                     "is_keyframe", "t_wc", "q_wc"):
+            if not np.array_equal(getattr(fa, name), getattr(fb, name)):
+                return dict(frame=i, output=name)
+    return None
+
+
+def phase_snapshot(device="cuda"):
+    """place_small's fixture with place recognition on: process the first
+    half, save, restore into a fresh system, continue both; then cli run
+    --save-state and --resume at 720p."""
+    cfg, frames, kw = place_small_setup()
+    half = len(frames) // 2
+    a = SLAMSystem(cfg, device=device, **kw)
+    for i, (g, d, _) in enumerate(frames[:half]):
+        a.process(g, d, i / 30.0)
+    path = os.path.join(ROOT, "build", f"snapshot_{device}", "ckpt.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    a.save(path)
+    b = SLAMSystem(cfg, device=device, **kw)
+    b.restore(path)
+    kernels.reset_launch_counts()
+    ra, rb = [], []
+    for i, (g, d, _) in enumerate(frames[half:], start=half):
+        ra.append(a.process(g, d, i / 30.0))
+        rb.append(b.process(g, d, i / 30.0))
+    a.finalize()
+    b.finalize()
+    sync(device)
+    launches = dict(kernels.launches)
+    flags_eq = all((x.is_keyframe, x.tracking_ok) == (y.is_keyframe,
+                                                      y.tracking_ok)
+                   for x, y in zip(ra, rb))
+    pos_err = float(max(np.abs(x.t_wc - y.t_wc).max()
+                        for x, y in zip(ra, rb)))
+    # cli run --save-state, then --resume, at 720p
+    out_dir = os.path.dirname(path)
+    argv = ["run", "--source", "synthetic", "--width", "1280", "--height",
+            "720", "--frames", str(SNAPSHOT_CLI_FRAMES), "--device", device]
+    ckpt = os.path.join(out_dir, "cli_state")
+    first, second = {}, {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc1 = cli.main(argv + ["--out-dir", os.path.join(out_dir, "a"),
+                               "--save-state", ckpt], out=first)
+        rc2 = cli.main(argv + ["--out-dir", os.path.join(out_dir, "b"),
+                               "--resume", ckpt + ".npz"], out=second)
+    emit("snapshot", frames=len(frames), saved_after=half,
+         flags_equal=flags_eq, max_pos_diff_m=pos_err,
+         first_divergence=first_divergence(ra, rb), stats_a=a.stats,
+         stats_b=b.stats, relocalizations=a.stats["relocalizations"],
+         launches=launches, cli_rc=[rc1, rc2],
+         cli_frames=[first.get("stats", {}).get("frames"),
+                     second.get("stats", {}).get("frames")],
+         cli_keyframes=[first.get("stats", {}).get("keyframes"),
+                        second.get("stats", {}).get("keyframes")])
+    if not flags_eq or not pos_err <= 1e-6:
+        fail(f"snapshot: resumed run differs (flags equal {flags_eq}, "
+             f"positions {pos_err} m): {first_divergence(ra, rb)}")
+    if (rc1, rc2) != (0, 0) or second["stats"]["frames"] != \
+            2 * SNAPSHOT_CLI_FRAMES:
+        fail(f"snapshot: cli --save-state / --resume returned {rc1}, {rc2}")
+    check_launches("snapshot", launches)
+
+
 def main() -> None:
     name, smi_line = phase_device()
     phase_build()
@@ -867,7 +1235,10 @@ def main() -> None:
     rows = phase_kernels(frames, cfg)
     phase_small()
     launches = phase_main(frames, cfg)
+    phase_fleet_small()
+    fleet_launches = phase_fleet(frames, cfg)
     phase_place_small()
+    phase_snapshot()
     phase_place_frames(cfg)
     phase_place_batch(frames, cfg)
     phase_yolo()
@@ -876,8 +1247,10 @@ def main() -> None:
     for r in rows:
         # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+        r["fleet_launches"] = fleet_launches.get(r["name"], 0)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "fleet_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     emit("done", seconds=time.perf_counter() - T_START)
     print(smi_line)

@@ -328,3 +328,10 @@ def run_ba(cfg, k: Intrinsics, state, max_landmarks: int = 512):
     result = optimize(k, problem, cfg.ba)
     new_state = apply_result(state, result, window_slots, lm_slots)
     return new_state, result
+
+
+def run_ba_streams(cfg, k: Intrinsics, state, max_landmarks: int = 512):
+    """``run_ba`` on S independent maps at once (every leaf of ``state``
+    with a leading stream dim S): one vmapped program for all streams.
+    → (new state, BAResult with leading dim S)."""
+    return torch.func.vmap(lambda s: run_ba(cfg, k, s, max_landmarks))(state)

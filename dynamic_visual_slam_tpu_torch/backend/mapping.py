@@ -20,7 +20,7 @@ import torch
 
 from dynamic_visual_slam_tpu_torch.config import SLAMConfig
 from dynamic_visual_slam_tpu_torch.core import camera as cam
-from dynamic_visual_slam_tpu_torch.core import lie
+from dynamic_visual_slam_tpu_torch.core import containers, lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend.tracker import (KeyframeBlock,
                                                              points_in_boxes)
@@ -324,7 +324,7 @@ def insert_keyframe(cfg: SLAMConfig, state: MapState, kf: KeyframeBlock,
     new_rank = torch.cumsum(is_new.long(), 0) - 1
     n_free = free.sum()
     free_slots = _set_drop(
-        torch.full((l_cap,), l_cap, dtype=torch.int64, device=dev),
+        torch.full_like(free_rank, l_cap),
         torch.where(free, free_rank, l_cap),
         torch.arange(l_cap, device=dev))
     can_alloc = is_new & (new_rank < n_free)
@@ -374,3 +374,29 @@ def insert_keyframe(cfg: SLAMConfig, state: MapState, kf: KeyframeBlock,
         n_active=lm.active.sum(),
         dropped_no_capacity=(is_new & ~can_alloc).sum())
     return MapState(lm, kdb), stats
+
+
+# ---------------------------------------------------------------------------
+# Streams as a leading dimension (the fleet)
+# ---------------------------------------------------------------------------
+
+def insert_keyframe_streams(cfg: SLAMConfig, state: MapState,
+                            kf: KeyframeBlock, det: Detections,
+                            filtered_mask: torch.Tensor,
+                            insert: torch.Tensor) -> MapState:
+    """``insert_keyframe`` for S independent maps at once (every leaf with
+    a leading stream dim S), kept only for the streams whose ``insert``
+    (S,) flag is set: one vmapped program for all streams, selected on the
+    device, as the reference's vmapped masked insert."""
+    new = torch.func.vmap(lambda s, k, d: insert_keyframe(
+        cfg, s, k, d, filtered_mask)[0])(state, kf, det)
+    return containers.tree_map2(
+        lambda a, b: torch.where(
+            insert.reshape(insert.shape + (1,) * (a.ndim - 1)), b, a),
+        state, new)
+
+
+def prune_streams(cfg: SLAMConfig, lm: LandmarkMap, now: torch.Tensor
+                  ) -> LandmarkMap:
+    """``prune`` of S landmark maps (leading dim S) at one time ``now``."""
+    return torch.func.vmap(lambda m: prune(cfg, m, now))(lm)

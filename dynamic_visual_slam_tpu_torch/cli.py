@@ -12,7 +12,9 @@ Runs on the card (``--device cuda``, the default; it raises without one)
 unless ``--device cpu`` is given.  Outputs (``--out-dir``): frontend and
 keyframe trajectories (TUM format), landmark and trajectory PLYs, and the
 stats JSON (the system's counters, ``fps``, ``wall_s``, ``landmarks``,
-per-stage timings, ``ate_rmse_m`` on synthetic sources).  ``main(argv,
+per-stage timings, ``ate_rmse_m`` on synthetic sources).  ``--save-state``
+writes a checkpoint of the final state and ``--resume`` starts from one
+(a missing checkpoint or another config exits with code 2).  ``main(argv,
 out=...)`` also hands an in-process caller the run's system.
 """
 
@@ -76,6 +78,22 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
     if slam.enable_place_recognition:
         # build the place chain's programs before the first frame
         slam.warmup_place()
+    if args.resume:
+        resume = args.resume
+        if not os.path.exists(resume) and os.path.exists(resume + ".npz"):
+            resume += ".npz"      # np.savez appends the extension on save
+        if not os.path.exists(resume):
+            print(f"error: checkpoint '{args.resume}' not found",
+                  file=sys.stderr)
+            return 2
+        try:
+            slam.restore(resume)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"resumed from {resume} "
+              f"({int(slam.map_state.keyframes.count)} keyframes)",
+              file=sys.stderr)
     timer = profiling.StageTimer()
 
     if args.source == "synthetic":
@@ -206,6 +224,13 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
                          lms["xyz"], lms["n_obs"])
     viz.trajectory_to_ply(os.path.join(args.out_dir, "trajectory.ply"),
                           ts_arr)
+    if args.save_state:
+        # np.savez appends .npz when absent; normalise so the printed path
+        # and a later --resume both name the file written
+        ckpt = args.save_state if args.save_state.endswith(".npz") \
+            else args.save_state + ".npz"
+        slam.save(ckpt)
+        print(f"checkpoint written to {ckpt}", file=sys.stderr)
 
     n_done = runner_stats["frames_processed"] if runner_stats else n
     stats = dict(slam.stats, fps=round(n_done / max(wall, 1e-9), 2),
@@ -293,6 +318,12 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
                     help="pretrained BoW vocabulary (e.g. "
                          "assets/orbvoc_synth.npz); else one is trained "
                          "online")
+    pr.add_argument("--resume", default=None, metavar="CKPT",
+                    help="restore a --save-state checkpoint (tracker + map "
+                         "+ place database) before the first frame")
+    pr.add_argument("--save-state", default=None, metavar="CKPT",
+                    help="write a checkpoint of the final system state "
+                         "(resumable with --resume)")
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     pr.set_defaults(fn=cmd_run)

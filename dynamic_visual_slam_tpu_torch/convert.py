@@ -15,16 +15,23 @@ weights (``load_params`` reads the reference's path-keyed npz,
 ``yolo_state_dict`` turns its HWIO tree into ``models.yolov8.YOLOv8``'s
 OIHW state dict).
 
-The reference's ``TrackerState.rng`` (a threefry key) has no torch
-counterpart and is dropped: the port takes its randomness from a
-``torch.Generator`` (``SLAMSystem`` seeds it with 0), or from an explicit
-``tracker.Sampler``.  The two packages' draws differ for the same seed;
-tests that need identical draws inject the reference's own samples.
+The reference's ``TrackerState.rng`` (a threefry key, two uint32 words a
+state) has no tensor counterpart: the port takes its randomness from a
+``torch.Generator`` (``SLAMSystem`` and ``SLAMFleet`` seed theirs with 0),
+or from an explicit sampler.  ``from_numpy`` leaves ``rng`` out of the
+state and ``seed_from_words`` maps its words to a generator seed (the
+first stream's, for a fleet's states with a leading stream dim);
+``tracker_state_to_numpy`` writes the generator's seed back as
+``jax.random.key(seed)``'s words (``seed_words``), one pair a stream, as
+``pipeline/snapshot.py`` does.  The two packages' draws differ for the
+same seed; tests that need identical draws inject the reference's own
+samples.  Every function here takes leaves with any leading dims, so a
+fleet's states (leading dim B) cross as a single system's do.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Type
+from typing import Any, Dict, Mapping, Optional, Type
 
 import numpy as np
 import torch
@@ -75,6 +82,31 @@ def to_numpy(nt) -> Dict[str, Any]:
         out[name] = to_numpy(v) if hasattr(v, "_asdict") else \
             v.detach().cpu().numpy()
     return out
+
+
+def seed_words(seed: int) -> np.ndarray:
+    """(2,) uint32 words of ``jax.random.key(seed)``."""
+    seed &= (1 << 64) - 1
+    return np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def seed_from_words(words) -> int:
+    """A generator seed from a reference key's words, (2,) or (..., 2):
+    the first key's ``w0 << 32 | w1``."""
+    w = np.asarray(words, np.uint64).reshape(-1, 2)[0]
+    return int(w[0]) << 32 | int(w[1])
+
+
+def tracker_state_to_numpy(state: TrackerState,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Dict[str, Any]:
+    """``to_numpy`` plus the reference's ``rng``: the words of the
+    generator's seed (0 without one), one pair per leading index."""
+    d = to_numpy(state)
+    seed = generator.initial_seed() if generator is not None else 0
+    d["rng"] = np.broadcast_to(seed_words(seed),
+                               tuple(state.frame_idx.shape) + (2,)).copy()
+    return d
 
 
 def keypoints(d, device="cpu") -> Keypoints:

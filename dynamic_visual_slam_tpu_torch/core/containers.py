@@ -108,6 +108,34 @@ def scatter_set(arr: torch.Tensor, idx: torch.Tensor, updates: torch.Tensor,
     return ext[:n]
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a (nested) NamedTuple; None
+    leaves stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
+    return fn(tree)
+
+
+def tree_map2(fn, a, b):
+    """``fn(x, y)`` over the tensors of two (nested) NamedTuples of one
+    type."""
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(tree_map2(fn, x, y) for x, y in zip(a, b)))
+    return fn(a, b)
+
+
+def tree_stack(trees):
+    """A list of (nested) NamedTuples of one type → one whose tensors are
+    stacked along a new leading dim."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_stack([getattr(t, n) for t in trees])
+                             for n in first._fields))
+    return torch.stack(trees)
+
+
 def row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """x[i] for a 0-d index tensor without a host read (indexing with a
     0-d tensor converts it to a Python int, which waits for the device)."""

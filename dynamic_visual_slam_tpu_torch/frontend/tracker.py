@@ -4,7 +4,9 @@ PnP → motion gate → pose chain → keyframe policy → keyframe payload.
 Port of the reference package's ``frontend/tracker.py``.  ``track_step``
 tracks one frame exactly as the reference's ``track_step`` (the anchored
 PnP runs unconditionally, and the pose chain composes the INVERSE of the
-frame-to-frame PnP transform).  ``track_batch``:
+frame-to-frame PnP transform); ``track_streams`` does the same for S
+independent streams at once (the fleet's step: the reference vmaps its
+``track_step``), and ``track_step`` is its one-stream case.  ``track_batch``:
 every stage whose inputs do not depend on the previous frame's OUTPUT runs
 batched over the B frames (depth gating, matching, F-RANSAC, frame-to-frame
 PnP, the speculative keyframe-anchored PnP, payload selection), and a short
@@ -139,13 +141,12 @@ def _select_keyframe_features(cfg: SLAMConfig, kps: Keypoints,
 
 def points_in_boxes(uv: torch.Tensor, boxes: torch.Tensor,
                     box_mask: torch.Tensor) -> torch.Tensor:
-    """(K,2) pixels × (D,4) xyxy boxes (+ (D,) validity) → (K,D)
-    containment, edge-inclusive on all four box edges."""
-    return ((uv[:, None, 0] >= boxes[None, :, 0])
-            & (uv[:, None, 0] <= boxes[None, :, 2])
-            & (uv[:, None, 1] >= boxes[None, :, 1])
-            & (uv[:, None, 1] <= boxes[None, :, 3])
-            & box_mask[None, :])
+    """(..., K, 2) pixels × (..., D, 4) xyxy boxes (+ (..., D) validity) →
+    (..., K, D) containment, edge-inclusive on all four box edges."""
+    u, v = uv[..., :, None, 0], uv[..., :, None, 1]
+    b = boxes[..., None, :, :]
+    return ((u >= b[..., 0]) & (u <= b[..., 2]) & (v >= b[..., 1])
+            & (v <= b[..., 3]) & box_mask[..., None, :])
 
 
 def _where(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -178,44 +179,68 @@ def track_step(cfg: SLAMConfig, state: TrackerState, gray: torch.Tensor,
     millimetres or float32 metres; timestamp () float32 sequence-relative
     seconds.  det/filtered (optional) enable frontend semantic culling; kps
     (optional) replaces the in-step extraction.  The RANSAC draws come from
-    ``sampler`` with this frame's index (stages "fm", "pnp", "anchor")."""
+    ``sampler`` with this frame's index (stages "fm", "pnp", "anchor").
+    ``track_streams`` on one stream."""
+    if kps is None:
+        kps = extract(gray, cfg.orb)
+    one = lambda x: x[None]  # noqa: E731
+    new_state, out = track_streams(
+        cfg, containers.tree_map(one, state), containers.tree_map(one, kps),
+        depth_m[None], timestamp.reshape(1), sampler,
+        det=None if det is None else containers.tree_map(one, det),
+        filtered=filtered)
+    first = lambda x: x[0]  # noqa: E731
+    return containers.tree_map(first, new_state), \
+        containers.tree_map(first, out)
+
+
+def track_streams(cfg: SLAMConfig, state: TrackerState, kps: Keypoints,
+                  depth_m: torch.Tensor, timestamp: torch.Tensor,
+                  sampler: Sampler, det=None, filtered=None
+                  ) -> Tuple[TrackerState, TrackOutput]:
+    """``track_step`` for S independent streams at once: every leaf of
+    ``state``, ``kps``, ``det`` and the outputs has a leading stream dim S;
+    depth_m (S, H, W), timestamp (S,).  Each stream's frame is tracked
+    exactly as ``track_step`` tracks it, as S independent frame pairs
+    through the batched stages of ``track_batch``; each stage draws every
+    stream's minimal sets in one ``sampler`` call with the streams' frame
+    indices (S,)."""
     if depth_m.dtype == torch.uint16:
         depth_m = depth_m.to(torch.float32) * 1e-3
     elif depth_m.dtype != torch.float32:
         depth_m = depth_m.to(torch.float32)
     k = Intrinsics.from_config(cfg.camera)
-    ids = state.frame_idx.long()[None]
+    ids = state.frame_idx.long()
     max_ham = float(cfg.match.max_hamming)
 
     def draws(stage, n_hyp, size, valid):
-        return sampler(stage, ids, n_hyp, size, valid.sum()[None])[0]
+        return sampler(stage, ids, n_hyp, size, valid.sum(-1))
 
-    # --- extraction + depth filter -----------------------------------------
-    if kps is None:
-        kps = extract(gray, cfg.orb)
+    # --- depth filter + semantic cull ---------------------------------------
     z = _depth_at(depth_m, kps.uv)
     mask = kps.mask & (z > cfg.depth.min_depth) & (z < cfg.depth.max_depth)
     if det is not None and filtered is not None \
             and cfg.semantic.cull_in_frontend:
-        drop_box = det.mask & filtered[det.category]
-        mask = mask & ~points_in_boxes(kps.uv, det.boxes, drop_box).any(1)
+        drop_box = det.mask & filtered[det.category]              # (S, D)
+        mask = mask & ~points_in_boxes(kps.uv, det.boxes, drop_box).any(-1)
     kps = kps._replace(mask=mask)
-    n_feat = mask.sum()
+    n_feat = mask.sum(-1)
     lost = n_feat == 0
 
     # --- match current → previous, F-RANSAC ----------------------------------
     m = hamming.match(kps.desc_bits, state.prev.desc_bits, kps.mask,
-                      state.prev.mask & state.has_prev, max_distance=max_ham)
-    n_match = m.valid.sum()
-    uv_prev = state.prev.uv[m.train_idx]
+                      state.prev.mask & state.has_prev[:, None],
+                      max_distance=max_ham)
+    n_match = m.valid.sum(-1)
+    uv_prev = containers.bgather(state.prev.uv, m.train_idx, 1)
     fm = ransac.fundamental_ransac(
         uv_prev, kps.uv, m.valid, threshold=cfg.ransac.fm_threshold_px,
         samples=draws("fm", cfg.ransac.fm_iterations, 8, m.valid))
-    fm_inlier = fm.inliers & fm.valid
-    n_inlier = fm_inlier.sum()
+    fm_inlier = fm.inliers & fm.valid[:, None]
+    n_inlier = fm_inlier.sum(-1)
 
     # --- PnP: previous-frame 3D → current pixels, constant-velocity prior ----
-    z_prev = state.prev_depth[m.train_idx]
+    z_prev = torch.gather(state.prev_depth, 1, m.train_idx)
     pnp_ok = fm_inlier & (z_prev > cfg.depth.min_depth) & \
         (z_prev <= cfg.depth.max_depth)
     xyz_prev = cam.backproject(k, uv_prev, z_prev)
@@ -223,39 +248,42 @@ def track_step(cfg: SLAMConfig, state: TrackerState, gray: torch.Tensor,
                draws("pnp", cfg.ransac.pnp_iterations, 6, pnp_ok),
                state.q_rel, state.t_rel)
     q_inv, t_inv = lie.se3_inverse(pnp.q, pnp.t)
-    motion_ok = (torch.linalg.vector_norm(t_inv)
+    motion_ok = (torch.linalg.vector_norm(t_inv, dim=-1)
                  <= cfg.motion.max_translation_m) & \
-        (torch.linalg.vector_norm(lie.so3_log(q_inv))
+        (torch.linalg.vector_norm(lie.so3_log(q_inv), dim=-1)
          <= cfg.motion.max_rotation_rad)
     accept = pnp.valid & motion_ok & state.has_prev & ~lost
     # T_wc ← T_wc ∘ T_prev←curr
     q_new, t_new = lie.se3_compose(state.q_wc, state.t_wc, q_inv, t_inv)
-    q_wc = torch.where(accept, q_new, state.q_wc)
-    t_wc = torch.where(accept, t_new, state.t_wc)
+    q_wc = _where(accept, q_new, state.q_wc)
+    t_wc = _where(accept, t_new, state.t_wc)
 
     # --- keyframe policy match + anchored PnP (unconditional) ----------------
     kf_m = hamming.match(kps.desc_bits, state.kf_desc_bits, kps.mask,
-                         state.kf_mask & state.has_kf, max_distance=max_ham)
-    n_kf_matches = kf_m.valid.sum()
+                         state.kf_mask & state.has_kf[:, None],
+                         max_distance=max_ham)
+    n_kf_matches = kf_m.valid.sum(-1)
     tracked = accept
     q_rel_eff, t_rel_eff = pnp.q, pnp.t
     n_pnp_out = pnp.n_inliers
     if cfg.tracking.anchor_to_keyframe:
         q_pred_cw, t_pred_cw = lie.se3_inverse(q_wc, t_wc)
-        anc_ok = kf_m.valid & state.has_kf
-        kfa = _pnp(cfg, k, state.kf_xyz_w[kf_m.train_idx], kps.uv, anc_ok,
+        anc_ok = kf_m.valid & state.has_kf[:, None]
+        kfa = _pnp(cfg, k, containers.bgather(state.kf_xyz_w, kf_m.train_idx,
+                                              1),
+                   kps.uv, anc_ok,
                    draws("anchor", cfg.ransac.pnp_iterations, 6, anc_ok),
                    q_pred_cw, t_pred_cw)
         q_abs, t_abs = lie.se3_inverse(kfa.q, kfa.t)
         dphi = lie.so3_log(lie.quat_mul(q_abs, lie.quat_conj(q_wc)))
         use_anchor = state.has_kf & kfa.valid & ~lost \
             & (kfa.n_inliers >= cfg.tracking.anchor_min_inliers) \
-            & (torch.linalg.vector_norm(t_abs - t_wc)
+            & (torch.linalg.vector_norm(t_abs - t_wc, dim=-1)
                <= cfg.tracking.anchor_max_jump_m) \
-            & (torch.linalg.vector_norm(dphi)
+            & (torch.linalg.vector_norm(dphi, dim=-1)
                <= cfg.tracking.anchor_max_jump_rad)
-        q_wc = torch.where(use_anchor, q_abs, q_wc)
-        t_wc = torch.where(use_anchor, t_abs, t_wc)
+        q_wc = _where(use_anchor, q_abs, q_wc)
+        t_wc = _where(use_anchor, t_abs, t_wc)
         tracked = accept | use_anchor
         q_rel_eff, t_rel_eff = lie.se3_compose(
             *lie.se3_inverse(q_wc, t_wc), state.q_wc, state.t_wc)
@@ -267,30 +295,31 @@ def track_step(cfg: SLAMConfig, state: TrackerState, gray: torch.Tensor,
 
     # --- keyframe payload: culled features + world positions -----------------
     keep = _select_keyframe_features(cfg, kps, fm_inlier)
-    keep = torch.where(state.has_prev, keep, kps.mask)
+    keep = torch.where(state.has_prev[:, None], keep, kps.mask)
     cap = cfg.map.max_obs_per_keyframe
     sel = containers.topk_mask_int(kps.response, keep, cap)
-    sel_idx = containers.stable_partition(sel)[:cap]
-    xyz_c = cam.backproject(k, kps.uv[sel_idx], z[sel_idx])
+    sel_idx = containers.stable_partition(sel)[:, :cap]
+    g = lambda x: containers.bgather(x, sel_idx, 1)  # noqa: E731
+    xyz_c = cam.backproject(k, g(kps.uv), torch.gather(z, 1, sel_idx))
     kf_block = KeyframeBlock(
-        q_wc=q_wc, t_wc=t_wc, uv=kps.uv[sel_idx],
-        xyz_w=cam.camera_to_world(q_wc, t_wc, xyz_c),
-        desc_bits=kps.desc_bits[sel_idx], desc_packed=kps.desc_packed[sel_idx],
-        response=kps.response[sel_idx], mask=sel[sel_idx],
-        frame_idx=state.frame_idx, timestamp=timestamp)
+        q_wc=q_wc, t_wc=t_wc, uv=g(kps.uv),
+        xyz_w=cam.camera_to_world(q_wc[:, None], t_wc[:, None], xyz_c),
+        desc_bits=g(kps.desc_bits), desc_packed=g(kps.desc_packed),
+        response=torch.gather(kps.response, 1, sel_idx),
+        mask=torch.gather(sel, 1, sel_idx), frame_idx=state.frame_idx,
+        timestamp=timestamp)
 
     new_state = TrackerState(
         q_wc=q_wc, t_wc=t_wc, prev=kps, prev_depth=z, has_prev=~lost,
-        kf_desc_bits=torch.where(is_kf, kf_block.desc_bits,
-                                 state.kf_desc_bits),
-        kf_mask=torch.where(is_kf, kf_block.mask, state.kf_mask),
-        kf_xyz_w=torch.where(is_kf, kf_block.xyz_w, state.kf_xyz_w),
+        kf_desc_bits=_where(is_kf, kf_block.desc_bits, state.kf_desc_bits),
+        kf_mask=_where(is_kf, kf_block.mask, state.kf_mask),
+        kf_xyz_w=_where(is_kf, kf_block.xyz_w, state.kf_xyz_w),
         has_kf=state.has_kf | (is_kf & state.has_prev),
         frames_since_kf=torch.where(is_kf, 0, state.frames_since_kf + 1
                                     ).to(torch.int32),
         frame_idx=(state.frame_idx + 1).to(torch.int32),
-        q_rel=torch.where(tracked, q_rel_eff, state.q_rel),
-        t_rel=torch.where(tracked, t_rel_eff, state.t_rel))
+        q_rel=_where(tracked, q_rel_eff, state.q_rel),
+        t_rel=_where(tracked, t_rel_eff, state.t_rel))
     out = TrackOutput(
         q_wc=q_wc, t_wc=t_wc, tracking_ok=tracked, n_features=n_feat,
         n_matches=n_match, n_inliers=n_inlier, n_pnp_inliers=n_pnp_out,
@@ -325,12 +354,8 @@ def track_batch(cfg: SLAMConfig, state: TrackerState, kps_b: Keypoints,
     if dets is not None and filtered is not None \
             and cfg.semantic.cull_in_frontend:
         drop_box = dets.mask & filtered[dets.category]            # (B, D)
-        inside = ((kps_b.uv[:, :, None, 0] >= dets.boxes[:, None, :, 0])
-                  & (kps_b.uv[:, :, None, 0] <= dets.boxes[:, None, :, 2])
-                  & (kps_b.uv[:, :, None, 1] >= dets.boxes[:, None, :, 1])
-                  & (kps_b.uv[:, :, None, 1] <= dets.boxes[:, None, :, 3])
-                  & drop_box[:, None, :])
-        mask_b = mask_b & ~inside.any(-1)
+        mask_b = mask_b & ~points_in_boxes(kps_b.uv, dets.boxes,
+                                           drop_box).any(-1)
     kps_b = kps_b._replace(mask=mask_b)
     n_feat = mask_b.sum(-1)
     lost = n_feat == 0

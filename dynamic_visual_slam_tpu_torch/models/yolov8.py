@@ -188,10 +188,9 @@ class RawDetections(NamedTuple):
     valid: torch.Tensor     # (D,) bool
 
 
-def decode(outputs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-scale head outputs (NCHW) → (boxes (A, 4) xyxy, class scores
-    (A, C)) of the first image, anchors in the reference's order (scale,
-    row, column)."""
+def decode_batch(outputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-scale head outputs (NCHW) → (boxes (N, A, 4) xyxy, class scores
+    (N, A, C)), anchors in the reference's order (scale, row, column)."""
     boxes_all, cls_all = [], []
     for (box, cls), stride in zip(outputs, STRIDES):
         box = box.permute(0, 2, 3, 1)                       # NHWC
@@ -211,7 +210,13 @@ def decode(outputs) -> Tuple[torch.Tensor, torch.Tensor]:
         y2 = (cy + dist[..., 3]) * stride
         boxes_all.append(torch.stack([x1, y1, x2, y2], -1).reshape(n, -1, 4))
         cls_all.append(torch.sigmoid(cls).reshape(n, -1, cls.shape[-1]))
-    return torch.cat(boxes_all, dim=1)[0], torch.cat(cls_all, dim=1)[0]
+    return torch.cat(boxes_all, dim=1), torch.cat(cls_all, dim=1)
+
+
+def decode(outputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_batch`` of the first image: (boxes (A, 4), scores (A, C))."""
+    boxes, cls = decode_batch(outputs)
+    return boxes[0], cls[0]
 
 
 def _iou(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -266,3 +271,14 @@ def detect(model: YOLOv8, img: torch.Tensor, max_out: int = 32,
     outs = model(img.permute(2, 0, 1)[None])
     boxes, cls_scores = decode(outs)
     return nms(boxes, cls_scores, max_out, score_thr, iou_thr)
+
+
+@torch.no_grad()
+def detect_batch(model: YOLOv8, imgs: torch.Tensor, max_out: int = 32,
+                 score_thr: float = 0.25, iou_thr: float = 0.45
+                 ) -> RawDetections:
+    """imgs: (N, S, S, 3) float32 in [0, 1] → detections with a leading
+    dim N: one forward for all N images, then ``nms`` on each, vmapped."""
+    boxes, cls_scores = decode_batch(model(imgs.permute(0, 3, 1, 2)))
+    return torch.func.vmap(lambda b, c: nms(b, c, max_out, score_thr,
+                                            iou_thr))(boxes, cls_scores)

@@ -766,6 +766,108 @@ class SLAMSystem:
         self._harvest_loops()
         self._harvest_reloc()
 
+    # ------------------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Full-system checkpoint: the device states, the tracker's
+        generator and the host clock and counters (``pipeline/snapshot.py``),
+        plus the place-recognition database in ``path + ".place.npz"``, so
+        a resumed system can close loops against pre-snapshot keyframes.
+        The reference's layout."""
+        from dynamic_visual_slam_tpu_torch.pipeline import snapshot
+        snapshot.save(path, self.tracker_state, self.map_state, self.config,
+                      self.generator, host=dict(
+                          t0=self._t0, last_ba_t=self._last_ba_t,
+                          stats=self.stats))
+        if self._bow_db is None:
+            return
+        db, voc = self._bow_db, self._bow_db.vocabulary
+        extra = dict(vectors=db.vectors.cpu().numpy(),
+                     used=db.used.cpu().numpy(), count=db.count,
+                     word_weights=voc.word_weights.cpu().numpy(),
+                     voc_k=np.asarray(voc.k), voc_depth=np.asarray(voc.depth),
+                     kfseq_counter=self._kf_seq)
+        for l, (lv, va) in enumerate(zip(voc.levels, voc.valid)):
+            extra[f"voc_level_{l}"] = lv.cpu().numpy()
+            extra[f"voc_valid_{l}"] = va.cpu().numpy()
+        names = ("desc", "uv", "mask", "xyz", "q", "t")
+        for slot, (seq, *arrays) in self._kf_store.items():
+            extra[f"kf_{slot}_seq"] = np.asarray(seq)
+            for name, a in zip(names, arrays):
+                extra[f"kf_{slot}_{name}"] = a.cpu().numpy()
+        np.savez_compressed(path + ".place", **extra)
+
+    def restore(self, path: str) -> None:
+        """Load a ``save`` checkpoint (the config must equal this
+        system's); the reference's checkpoints too.  In-flight recovery
+        state is dropped: a pending relocalization verdict, BoW queries and
+        loop verdicts were computed against pre-restore poses and slots;
+        the lost streak restarts."""
+        import os
+        from dataclasses import fields as dataclass_fields
+
+        from dynamic_visual_slam_tpu_torch.pipeline import snapshot
+        gen = torch.Generator(device=self._dev)
+        ts, ms, cfg = snapshot.load(path, self._dev, gen)
+        if cfg != self.config:
+            diff = [f.name for f in dataclass_fields(cfg)
+                    if getattr(cfg, f.name) != getattr(self.config, f.name)]
+            raise ValueError(
+                "snapshot config mismatch — the checkpoint was written "
+                f"with different settings (sections differing: {diff}); "
+                "construct the system with the checkpoint's config "
+                "(snapshot.load returns it) or rerun with matching flags")
+        self.generator.set_state(gen.get_state())
+        self.tracker_state = ts
+        self.map_state = ms
+        self._n_kf_host = int(ms.keyframes.count)
+        self._pending_reloc = None
+        self._pending_queries = []
+        self._pending_loops = []
+        self._lost_streak = 0
+        # the host sequence counter follows the device ring (apply_loop
+        # anchors corrections by sequence id); the place file overrides it
+        self._kf_seq = int(ms.keyframes.count)
+        host = snapshot.load_host(path)
+        if host is not None:
+            # the port's own snapshot: resume the time base, the BA timer
+            # and the counters (the relocalization draws' key) exactly
+            self._t0, self._last_ba_t = host["t0"], host["last_ba_t"]
+            self.stats = dict(host["stats"])
+        place_path = path + ".place.npz"
+        if not os.path.exists(place_path):
+            return
+        dev = self._dev
+        with np.load(place_path) as data:
+            files = set(data.files)
+            depth = int(data["voc_depth"]) if "voc_depth" in files \
+                else self.config.place.depth
+            voc_k = int(data["voc_k"]) if "voc_k" in files \
+                else self.config.place.branching
+            voc = bow._vocabulary(
+                voc_k, depth, [data[f"voc_level_{l}"] for l in range(depth)],
+                [data[f"voc_valid_{l}"] for l in range(depth)],
+                data["word_weights"], dev)
+            self._bow_db = bow.Database(
+                voc, capacity=self.config.place.max_db_entries,
+                vectors=torch.from_numpy(data["vectors"]).to(dev),
+                used=torch.from_numpy(data["used"]).to(dev),
+                count=int(data["count"]))
+            self._kf_seq = int(data["kfseq_counter"])
+            cap = self.config.map.max_obs_per_keyframe
+            defaults = dict(xyz=np.zeros((cap, 3), np.float32),
+                            q=np.asarray([1., 0., 0., 0.], np.float32),
+                            t=np.zeros(3, np.float32))
+            self._kf_store = {}
+            for key in data.files:
+                if not (key.startswith("kf_") and key.endswith("_seq")):
+                    continue
+                slot = int(key.split("_")[1])
+                arrays = [torch.from_numpy(np.array(
+                    data[f"kf_{slot}_{n}"] if f"kf_{slot}_{n}" in files
+                    else defaults[n])).to(dev)
+                    for n in ("desc", "uv", "mask", "xyz", "q", "t")]
+                self._kf_store[slot] = (int(data[key]), *arrays)
+
     def _record_ba(self, res: ba_mod.BAResult, ts: float) -> None:
         host = {k: v.item() for k, v in res._asdict().items()
                 if k in ("converged", "initial_cost", "final_cost",

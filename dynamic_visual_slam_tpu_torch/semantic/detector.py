@@ -53,27 +53,49 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
-def letterbox(rgb, size: int, device) -> tuple:
-    """(H, W, 3) uint8 or float RGB → ((size, size, 3) float32 in [0, 1] on
-    ``device``, scale, (pad_x, pad_y)): the frame resized as the reference's
-    ``jax.image.resize(..., "bilinear")`` (two weight matrices, contracted
-    in float32), centred on a 0.447 canvas."""
-    dev = torch.device(device)
-    img = torch.as_tensor(rgb).to(dev, torch.float32) / 255.0
-    h, w = img.shape[:2]
+@functools.lru_cache(maxsize=16)
+def resize_tensor(n_in: int, n_out: int, device: torch.device
+                  ) -> torch.Tensor:
+    """resize_weights on ``device``, uploaded once."""
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
+
+
+def letterbox_geometry(h: int, w: int, size: int) -> tuple:
+    """(scale, (new_h, new_w), (pad_x, pad_y)) of an (h, w) frame centred
+    in a size x size canvas."""
     scale = min(size / h, size / w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
+    return scale, (nh, nw), ((size - nw) // 2, (size - nh) // 2)
+
+
+def letterbox(rgb, size: int, device) -> tuple:
+    """(..., H, W, 3) uint8 or float RGB → ((..., size, size, 3) float32 in
+    [0, 1] on ``device``, scale, (pad_x, pad_y)): each frame resized as the
+    reference's ``jax.image.resize(..., "bilinear")`` (two weight matrices,
+    contracted in float32), centred on a 0.447 canvas."""
+    dev = torch.device(device)
+    img = torch.as_tensor(rgb).to(dev, torch.float32) / 255.0
+    h, w = img.shape[-3:-1]
+    scale, (nh, nw), (px, py) = letterbox_geometry(h, w, size)
     if nh != h:
-        wh = torch.from_numpy(resize_weights(h, nh)).to(dev)
-        img = torch.einsum("hwc,hy->ywc", img, wh)
+        img = torch.einsum("...hwc,hy->...ywc", img,
+                           resize_tensor(h, nh, dev))
     if nw != w:
-        ww = torch.from_numpy(resize_weights(w, nw)).to(dev)
-        img = torch.einsum("ywc,wx->yxc", img, ww)
-    px, py = (size - nw) // 2, (size - nh) // 2
-    canvas = torch.full((size, size, 3), LETTERBOX_FILL, dtype=torch.float32,
-                        device=dev)
-    canvas[py:py + nh, px:px + nw] = img
+        img = torch.einsum("...ywc,wx->...yxc", img,
+                           resize_tensor(w, nw, dev))
+    canvas = torch.full(img.shape[:-3] + (size, size, 3), LETTERBOX_FILL,
+                        dtype=torch.float32, device=dev)
+    canvas[..., py:py + nh, px:px + nw, :] = img
     return canvas, scale, (px, py)
+
+
+def build_model(params: Dict[str, Any], device) -> yolov8.YOLOv8:
+    """YOLOv8 in eval mode on ``device`` from the reference's parameter
+    tree (numpy, e.g. ``convert.load_params``)."""
+    from dynamic_visual_slam_tpu_torch.convert import yolo_state_dict
+    model = yolov8.YOLOv8(int(params["heads"][0]["cls3"]["b"].shape[0]))
+    model.load_state_dict(yolo_state_dict(params))
+    return model.to(device).eval()
 
 
 class YoloDetector:
@@ -103,11 +125,7 @@ class YoloDetector:
             params = load_params(weights_path)
         if "input_size" in params:
             self.size = int(np.asarray(params["input_size"], np.float32))
-        from dynamic_visual_slam_tpu_torch.convert import yolo_state_dict
-        self.model = yolov8.YOLOv8(int(params["heads"][0]["cls3"]["b"]
-                                       .shape[0]))
-        self.model.load_state_dict(yolo_state_dict(params))
-        self.model.to(self.device).eval()
+        self.model = build_model(params, self.device)
         self._recent = []   # (boxes, category, score) of recent frames
 
     def letterbox(self, rgb):

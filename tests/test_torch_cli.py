@@ -17,6 +17,9 @@ its outputs go through, against the JAX package.
   within 6 mm of the reference's, the dynamic per-frame slice's bound
   (tests/test_torch_dynamic.py), with the RMS within 2 mm and the ATE
   within 1 mm (measurements in ``test_run_matches_the_reference_cli``).
+- ``--save-state`` then ``--resume``: the checkpoint restores the saved
+  map exactly and the resumed run carries on from its counters; a missing
+  checkpoint or another config exits with 2.
 - The host modules the outputs go through are numpy copies of the
   reference's: TUM trajectory files (``quat_from_mat``, ``write_tum``,
   ``read_tum``), the ATE (``umeyama_alignment``, ``ate_rmse``; 1e-12),
@@ -39,7 +42,7 @@ from dynamic_visual_slam_tpu.io import trajectory as jtraj
 from dynamic_visual_slam_tpu.io import tum as jtum
 from dynamic_visual_slam_tpu.utils import profiling as jprof
 from dynamic_visual_slam_tpu.utils import viz as jviz
-from dynamic_visual_slam_tpu_torch import cli
+from dynamic_visual_slam_tpu_torch import cli, convert
 from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
 from dynamic_visual_slam_tpu_torch.config import SLAMConfig
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
@@ -183,6 +186,46 @@ def test_run_defaults_to_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([a for a in ARGS if a not in ("--device", "cpu")]
                  + ["--out-dir", str(tmp_path)])
+
+
+def test_save_state_then_resume(tmp_path, capsys):
+    """``--save-state`` writes the reference's checkpoint (``.npz``
+    appended when absent, the place database beside it); ``--resume``
+    starts the next run from it: the saved state and counters are the
+    restored system's before its first frame.  A missing checkpoint or one
+    written with another config exits with 2, as the reference's."""
+    ckpt = tmp_path / "state"
+    first = {}
+    assert cli.main(ARGS + ["--out-dir", str(tmp_path / "a"),
+                            "--save-state", str(ckpt)], out=first) == 0
+    assert (tmp_path / "state.npz").exists()
+    assert (tmp_path / "state.npz.place.npz").exists() == (
+        first["system"]._bow_db is not None)
+    assert "checkpoint written to" in capsys.readouterr().err
+    saved = first["system"]
+    restored = SLAMSystem(saved.config, device="cpu")
+    restored.restore(str(tmp_path / "state.npz"))
+    for got, want in zip(convert.to_numpy(restored.map_state.landmarks)
+                         .values(),
+                         convert.to_numpy(saved.map_state.landmarks)
+                         .values()):
+        np.testing.assert_array_equal(got, want)
+    second = {}
+    assert cli.main(ARGS + ["--out-dir", str(tmp_path / "b"),
+                            "--resume", str(ckpt)], out=second) == 0
+    assert "resumed from" in capsys.readouterr().err
+    st1, st2 = first["stats"], second["stats"]
+    assert st2["frames"] == st1["frames"] + N
+    assert st2["keyframes"] >= st1["keyframes"]
+    kdb = second["system"].map_state.keyframes
+    assert int(kdb.count) > int(saved.map_state.keyframes.count)
+    assert cli.main(ARGS + ["--out-dir", str(tmp_path / "c"), "--resume",
+                            str(tmp_path / "missing")]) == 2
+    assert "not found" in capsys.readouterr().err
+    other = [a if a != "160" else "192" for a in ARGS]
+    assert cli.main(other + ["--out-dir", str(tmp_path / "d"), "--resume",
+                             str(ckpt)]) == 2
+    assert "config mismatch" in capsys.readouterr().err
 
 
 def test_gt_detector_needs_the_dynamic_source(tmp_path):

@@ -3,7 +3,8 @@ imports JAX or anything of the JAX package; its entry points default to the
 card and raise without one; its kernels are built without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
 query, loop verification, the pose-graph loop correction, the detector's
-network and NMS) never read a value
+network and NMS, the fleet's step, step_batch, BA and detector) never read
+a value
 back to the host nor build a tensor from host data, either of which makes
 the host wait for the card (tests/test_torch_kernels_cuda.py checks the same
 on the card with torch's sync debug mode)."""
@@ -27,7 +28,9 @@ from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fields
+from dynamic_visual_slam_tpu_torch.parallel import mesh
 from dynamic_visual_slam_tpu_torch.pipeline import slam as pslam
+from dynamic_visual_slam_tpu_torch.pipeline import snapshot, wire
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 from dynamic_visual_slam_tpu_torch.place import bow
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
@@ -64,7 +67,8 @@ def test_no_jax_or_reference_imports():
                 "convert.py", "pipeline/slam.py", "models/yolov8.py",
                 "semantic/detector.py", "pipeline/runner.py",
                 "pipeline/sync.py", "cli.py", "io/tum.py", "utils/viz.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "pipeline/wire.py",
+                "pipeline/snapshot.py", "parallel/mesh.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
@@ -93,6 +97,23 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         SLAMSystem(SLAMConfig().replace(
             camera=SLAMConfig().camera.scaled(160, 120)))
+
+
+def test_fleet_and_state_io_default_to_the_card(monkeypatch, tmp_path):
+    cfg = SLAMConfig().replace(camera=SLAMConfig().camera.scaled(160, 120))
+    slam = SLAMSystem(cfg, device="cpu", enable_place_recognition=False)
+    path = str(tmp_path / "ckpt.npz")
+    slam.save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.SLAMFleet(cfg, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.sharded_detector_apply(convert.load_params(
+            str(ROOT / "assets" / "yolov8n_synth.npz")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        snapshot.load(path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        wire.decode(b"\x00" * 64, capacity=8)
 
 
 def test_wrappers_take_the_plain_path_only_on_the_cpu():
@@ -189,7 +210,10 @@ def stage_inputs():
         str(ROOT / "assets" / "yolov8n_synth.npz"))))
     canvas = torch.rand((128, 128, 3), generator=torch.Generator()
                         .manual_seed(0))
-    return dict(yolo=yolo.eval(), canvas=canvas,
+    fleet_frames = (grays[:4].reshape(2, 2, *grays.shape[1:]),
+                    depths[:4].reshape(2, 2, *depths.shape[1:]),
+                    stamps[:4].reshape(2, 2))
+    return dict(yolo=yolo.eval(), canvas=canvas, fleet_frames=fleet_frames,
                 cfg=cfg, grays=grays, depths=depths, stamps=stamps, kps=kps,
                 sampler=sampler, det=det, filt=filt, blocks=blocks,
                 block=blocks[-1], state=state, db=db,
@@ -198,12 +222,32 @@ def stage_inputs():
 
 @pytest.mark.parametrize("stage", ["extract", "track", "insert", "ba",
                                    "track_step", "bow", "verify", "pgo",
-                                   "detect"])
+                                   "detect", "fleet_step", "fleet_batch",
+                                   "fleet_ba", "fleet_detect"])
 def test_device_stages_make_no_host_round_trip(stage_inputs, stage):
     x = stage_inputs
     cfg = x["cfg"]
+    if stage.startswith("fleet"):
+        fleet = mesh.SLAMFleet(cfg, 2, kf_slots=2, device="cpu")
+        grays, depths, stamps = x["fleet_frames"]
+        if stage == "fleet_ba":
+            fleet.step_batch(grays, depths, stamps, auto_ba=False)
+        elif stage == "fleet_detect":
+            detect = fleet.make_detector(convert.load_params(
+                str(ROOT / "assets" / "yolov8n_synth.npz")), input_size=64)
     with no_host_traffic():
-        if stage == "extract":
+        if stage == "fleet_step":
+            out = fleet.step(grays[0], depths[0], stamps[0],
+                             auto_ba=False).keyframe.mask
+        elif stage == "fleet_batch":
+            fleet.step_batch(grays, depths, stamps, auto_ba=False)
+            out = fleet.map_states.landmarks.active
+        elif stage == "fleet_ba":
+            out = torch.isfinite(fleet.run_ba(0.5))
+        elif stage == "fleet_detect":
+            res = detect(grays[0])
+            out = res.mask | ~res.mask
+        elif stage == "extract":
             out = orb.extract_batch(x["grays"], cfg.orb).mask
         elif stage == "track":
             _, res = tracker.track_batch(

@@ -307,3 +307,74 @@ def test_yolo_on_the_card_matches_the_cpu(card):
     dg = yolov8.detect(gpu, canvas.cuda())
     assert sorted(dg.classes[dg.valid].tolist()) == \
         sorted(dw.classes[dw.valid].tolist())
+
+
+@pytest.fixture(scope="module")
+def fleet_levels(card):
+    """The fleet's shape: one extraction of B = 8 streams at 720p, each
+    stream's frame from the 6-frame 720p cycle, offset by its index."""
+    cam = SLAMConfig().camera
+    seq = [g for g, *_ in synthetic.generate_sequence(cam, 6, seed=3)]
+    grays = torch.from_numpy(np.stack([seq[s % 6] for s in range(8)])
+                             .astype(np.float32)).to(card)
+    return [lv.contiguous() for lv in imops.build_pyramid(
+        grays, CFG.n_levels, CFG.scale_factor)]
+
+
+@pytest.mark.cuda
+def test_fast_score_at_the_fleet_shape(fleet_levels):
+    """Kernel B1 on B = 8 frames x 8 levels of 720p (22,824,704 px), one
+    launch: bit-equal to its plain version."""
+    assert sum(lv.numel() for lv in fleet_levels) == 22_824_704
+    before = kernels.launches["fast_score"]
+    got = fields.fast_score_batch(fleet_levels)
+    torch.cuda.synchronize()
+    assert kernels.launches["fast_score"] == before + 1
+    for g, lv in zip(got, fleet_levels):
+        assert torch.equal(g, fast.corner_score(lv))
+
+
+@pytest.mark.cuda
+def test_descriptors_at_the_fleet_shape(fleet_levels):
+    """Kernel B2 on the fleet's 8 x 1024 keypoint slots, one launch:
+    bit-equal to its plain version."""
+    _, inputs = orb.detect_batch(fleet_levels,
+                                 fields.fast_score_batch(fleet_levels), CFG)
+    assert inputs.level.numel() == 8 * CFG.max_keypoints
+    before = kernels.launches["orb_desc_moments"]
+    got = descriptors.descriptors_moments(*inputs)
+    want = descriptors.descriptors_moments_plain(*inputs)
+    torch.cuda.synchronize()
+    assert kernels.launches["orb_desc_moments"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fleet_step_does_not_synchronise(sequence):
+    """The fleet's step, step_batch and BA on the card (2 streams at
+    320x240) with torch's sync debug mode set to raise (the fleets are
+    built before: construction uploads its tables)."""
+    from dynamic_visual_slam_tpu_torch.parallel.mesh import SLAMFleet
+    dev = torch.device("cuda")
+    cfg = SLAMConfig().replace(camera=CAM)
+    grays, depths = (t.to(dev) for t in sequence)
+    g = grays.reshape(2, 2, *grays.shape[1:])
+    d = depths.reshape(2, 2, *depths.shape[1:])
+    s = torch.arange(4, dtype=torch.float32, device=dev).reshape(2, 2) / 30
+
+    def run(fleet):
+        fleet.step(g[0], d[0], s[0], auto_ba=False)
+        fleet.step_batch(g, d, s, auto_ba=False)
+        return fleet.run_ba(0.5)
+
+    first, second = (SLAMFleet(cfg, 2, kf_slots=2, device=dev)
+                     for _ in range(2))
+    run(first)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        costs = run(second)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(costs).all())

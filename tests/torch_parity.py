@@ -78,6 +78,26 @@ class JaxSampler:
         return self.keys[stage][f]
 
 
+class JaxFleetSampler:
+    """The fleet's sampler (parallel/mesh.FleetSampler) returning the
+    reference fleet's own draws: stream s's key chain starts at
+    fold_in(key(0), s), the key the reference's SLAMFleet gives it, and
+    frame f of stream s draws as JaxSampler's frame f."""
+
+    def __init__(self, n_streams: int, n_frames: int):
+        self.streams = [JaxSampler(n_frames, start=jax.random.fold_in(
+            jax.random.key(0), s)) for s in range(n_streams)]
+
+    def __call__(self, stage, streams, frame_ids, n_hyp, size, count):
+        return torch.cat([
+            self.streams[s](stage, f[None], n_hyp, size, c[None])
+            for s, f, c in zip(streams.tolist(), frame_ids, count)])
+
+    def solo(self, stream: int) -> JaxSampler:
+        """The tracker.Sampler of one stream (a solo run's draws)."""
+        return self.streams[stream]
+
+
 class Pacer:
     """Paces a threaded run so that ApproximateTime pairs every frame with
     its detection: ``frames`` hands out frame k only once the detector has
