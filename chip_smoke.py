@@ -57,19 +57,37 @@ Phases (one JSON line each, prefixed "phase"):
            detector honours): logits, NMS and detections held against the
            CPU (phase_yolo says how); ms a call (median of 20), the
            forward and NMS alone;
-  dynamic_small  the reference's in-loop culling proof
-           (semantic/train.in_loop_eval): 320x240, 180 frames, seed 0,
-           default_walkers, process() with culling off, with ground-truth
-           boxes and with the learned detector; tests/test_dynamic.py's
-           limits on ATE and walker landmarks;
+  dynamic_small  the reference's in-loop culling proof, through the
+           port's semantic/train.in_loop_eval, one call a condition:
+           320x240, 180 frames, seed 0, default_walkers, process() with
+           culling off, with ground-truth boxes and with the learned
+           detector; tests/test_dynamic.py's limits on ATE and walker
+           landmarks;
   dynamic_frames  cli.main(["run", "--source", "dynamic", "--detector",
            "yolov8", ...]) in-process at 720p with every default on, 64
            frames (cut from 120 for the script's time limit): fps, the
-           detector and frame stages, ATE, walker and person landmarks.
+           detector and frame stages, ATE, walker and person landmarks;
+  importers  an ultralytics-layout .pt with seeded random weights and
+           BatchNorm statistics through YoloDetector(weights_path=...pt)
+           against the converted tree on three 720p walker frames (equal
+           detections), save_params → load_params bit for bit, the
+           ORBvoc.txt fixture's descend on the card equal to the CPU's;
+  train_vocab  place/pretrain.train_pretrained_vocabulary at the
+           reference's width (k 10, depth 3, 500 a frame, 424x240, 12
+           scenes, 8 frames each, cut from 24): B1 and B2 once a frame,
+           retrieval accuracy at least the reference's less one scene;
+  train_detector  semantic/train.train of YOLOv8n at 256, batch 16, 200
+           steps on 128 rendered images (cut from 1500 and 384): the loss
+           falling, held-out mean best IoU at least 0.05 above the
+           initialisation's; its own loop of train_step calls: ms a step,
+           images/s, launches of one profiled step; peak memory; the loss
+           and gradients on the card against the CPU within
+           tests/test_torch_train.py's bounds at 128 and at 256, and the
+           median leaf's within TRAIN_GRAD_MEDIAN_TOL at 256.
 The kernels' launch counters are reset just before main, fleet_small,
-fleet, snapshot, place_frames, place_batch, dynamic_small and
-dynamic_frames are driven and read just after; B1 and B2 must have
-launched in each.  The kernels phase also holds B1 and B2 at the fleet's
+fleet, snapshot, place_frames, place_batch, dynamic_small (each
+condition), dynamic_frames and train_vocab are driven and read just after;
+B1 and B2 must have launched in each.  The kernels phase also holds B1 and B2 at the fleet's
 shape (8 frames) and prints how many blurred pixels differ between the
 card and the CPU.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -82,6 +100,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -100,13 +119,14 @@ from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
                                                   SLAMConfig)
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
-from dynamic_visual_slam_tpu_torch.models import yolov8
+from dynamic_visual_slam_tpu_torch.models import convert_ultralytics, yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.parallel.mesh import SLAMFleet
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
-from dynamic_visual_slam_tpu_torch.semantic.detector import (
-    YoloDetector, boxes_to_detections)
+from dynamic_visual_slam_tpu_torch.place import bow, pretrain
+from dynamic_visual_slam_tpu_torch.semantic import train
+from dynamic_visual_slam_tpu_torch.semantic.detector import YoloDetector
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # Kernel B1's (and B3's) instructions a pixel, by class, counted in
@@ -153,6 +173,33 @@ FLEET_T = 24                   # fleet: scan steps a step_batch call
 FLEET_TIMED = 5                # fleet: timed step_batch calls
 FLEET_SMALL_FRAMES = 14        # fleet_small: tests/test_parallel.py's
 SNAPSHOT_CLI_FRAMES = 6        # snapshot: 720p frames a cli run
+VOCAB_SCENES = 12              # train_vocab: the reference's 12 scenes,
+VOCAB_FRAMES = 8               # 8 frames each (cut from 24)
+# scene_retrieval_accuracy of the JAX package's
+# place/pretrain.train_pretrained_vocabulary at these settings (k 10, depth
+# 3, 500 a frame, 424x240, seed 0), measured on the CPU: 11 of 12 scenes;
+# the phase allows one scene less
+REF_VOCAB_ACCURACY = 0.9167
+TRAIN_SIZE = 256               # train_detector: the shipped weights' size
+TRAIN_BATCH = 16               # the reference's default batch
+TRAIN_POOL = 128               # rendered images (cut from 384)
+TRAIN_STEPS = 200              # steps (cut from 1500)
+TRAIN_WARMUP = 5               # steps left out of the step times
+TRAIN_TIMED = 40               # timed steps
+TRAIN_EVAL_IMAGES = 16         # held-out images (the reference's cli: 48)
+RENDER_WORKERS = 8             # render_pool's choice on an 8-core host
+# tests/test_torch_train.py's bounds on detection_loss and its gradients
+# (the port against the reference on the CPU, 4 images at 128): the loss's
+# relative error, and each leaf's gradient, as the norm of the difference
+# over the norm; the card is held to them against the CPU at that shape
+TRAIN_LOSS_REL_TOL = 7.9e-7
+TRAIN_GRAD_REL_TOL = 0.0515
+# the median leaf's relative gradient difference, card against CPU, at the
+# timed shape (16 images at 256; the bounds above hold there too): 1.5
+# times the most scripts/torch_train_determinism.py measured (NVIDIA H100
+# 80GB HBM3, 700.00 W: 0.0009967 with cuDNN's default algorithms,
+# 0.0010383 with the deterministic ones train_step runs)
+TRAIN_GRAD_MEDIAN_TOL = 0.00156
 T_START = time.perf_counter()
 
 
@@ -236,7 +283,8 @@ def phase_device():
     smi_line = smi.stdout.strip().splitlines()[0]
     emit("device", kind=name, count=torch.cuda.device_count(),
          nvidia_smi=smi_line, torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda,
+         cv2_installed=importlib.util.find_spec("cv2") is not None)
     return name, smi_line
 
 
@@ -799,63 +847,24 @@ def box_errors(want, got, boxes, cls, iou_thr: float):
     return errs, tied
 
 
-def walker_landmarks(est_t, gt_t, xyz, n_obs, objects, duration_s):
-    """semantic/train.in_loop_eval's count: landmarks in the estimated
-    frame aligned onto the ground truth (the rigid alignment of ATE), then
-    those inside a walker's swept volume → (confirmed ones with n_obs >= 2,
-    all)."""
-    r, t = trajectory.umeyama_alignment(np.asarray(est_t, np.float64),
-                                        np.asarray(gt_t, np.float64))
-    hits = synthetic.walker_swept_hits(
-        np.asarray(xyz, np.float64) @ r.T + t, objects, duration_s)
-    return int(np.sum(hits & (np.asarray(n_obs) >= 2))), int(np.sum(hits))
-
-
 def run_dynamic_small(device, n_frames: int = DYNAMIC_SMALL_FRAMES):
-    """semantic/train.in_loop_eval on the port: culling off, ground-truth
-    boxes, the learned detector (the shipped weights at their 256)."""
-    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
-                       cx=159.5, cy=119.5)
-    cfg = SLAMConfig().replace(camera=cam)
-    objs = synthetic.default_walkers(n_frames)
-    frames = list(synthetic.generate_dynamic_sequence(
-        cam, n_frames, seed=0, objects=objs, depth_noise=0.004))
-    gt_t = np.stack([f[3] for f in frames])
-    detector = YoloDetector(cfg, weights_path=YOLO_WEIGHTS, device=device)
-    cap = cfg.semantic.max_detections
+    """semantic/train.in_loop_eval on the port, one call a condition
+    (culling off, ground-truth boxes, the learned detector: the shipped
+    weights at their 256), the launch counters reset just before each call
+    and read just after → {condition: in_loop_eval's report, with the
+    call's ``launches`` and ``call_s`` (the call's seconds, its 180 frames'
+    rendering included)}."""
+    params = convert.load_params(YOLO_WEIGHTS)
     results = {}
     for cond in ("off", "gt", "learned"):
-        slam = SLAMSystem(cfg, ba_async=False,
-                          enable_place_recognition=False, device=device)
         kernels.reset_launch_counts()
-        n_boxes = 0
         t0 = time.perf_counter()
-        for gray, depth, _, _, ts, boxes in frames:
-            det = None
-            if cond == "gt":
-                det = boxes_to_detections(boxes, cap, device=device)
-            elif cond == "learned":
-                det = detector(np.stack([gray] * 3, -1))
-                n_boxes += int(det.mask.sum())
-            slam.process(gray, depth, ts, detections=det)
-        slam.finalize()
-        seconds = time.perf_counter() - t0
-        _, _, est_t = slam.frontend_trajectory()
-        lms = slam.landmarks_world()
-        confirmed, anywhere = walker_landmarks(est_t, gt_t, lms["xyz"],
-                                               lms["n_obs"], objs,
-                                               n_frames / 30.0)
-        results[cond] = dict(
-            ate_m=trajectory.ate_rmse(est_t, gt_t),
-            walker_landmarks_confirmed=confirmed,
-            walker_landmarks_any=anywhere,
-            person_landmarks=int(np.sum(lms["category"] == 1)),
-            landmarks=int(len(lms["xyz"])),
-            keyframes=slam.stats["keyframes"], seconds=seconds,
-            ms_per_frame=seconds * 1e3 / n_frames,
-            launches=dict(kernels.launches))
-        if cond == "learned":
-            results[cond]["detections_total"] = n_boxes
+        res = train.in_loop_eval(params, n_frames=n_frames,
+                                 conditions=(cond,), verbose=False,
+                                 device=device)[cond]
+        sync(device)
+        results[cond] = dict(res, launches=dict(kernels.launches),
+                             call_s=time.perf_counter() - t0)
     return results
 
 
@@ -915,7 +924,7 @@ def run_dynamic_frames(device, n_frames: int = DYNAMIC_FRAMES,
         fail(f"dynamic_frames: {len(stamps)} frames for {len(gt)} stamps")
     gt_t = np.stack([gt[k] for k in sorted(gt)])
     lms = slam.landmarks_world()
-    walkers, anywhere = walker_landmarks(
+    walkers, anywhere = train.walker_landmarks(
         est_t, gt_t, lms["xyz"], lms["n_obs"],
         synthetic.default_walkers(n_frames), n_frames / 30.0)
     return dict(argv=argv, seconds=seconds, launches=launches,
@@ -949,6 +958,324 @@ def phase_dynamic_frames():
     if st["frames"] != DYNAMIC_FRAMES:
         fail(f"dynamic_frames: {st['frames']} frames processed")
     check_launches("dynamic_frames", res["launches"])
+
+
+def fake_ultralytics(shapes):
+    """A torch module tree in the ultralytics YOLOv8 layout (``model.<idx>``
+    Conv+BN modules, C2f m-chains, the detect head ``model.22``'s
+    ``cv2``/``cv3``) with the shapes of ``shapes`` (a parameter tree, HWIO
+    ``w``) and seeded random weights and BatchNorm statistics; as
+    tests/test_importers.py builds it."""
+    nn = torch.nn
+    g = torch.Generator().manual_seed(0)
+
+    def conv_bn(leaf):
+        kh, kw, cin, cout = leaf["w"].shape
+        m = nn.Module()
+        m.conv = nn.Conv2d(cin, cout, (kh, kw), bias=False)
+        m.bn = nn.BatchNorm2d(cout, eps=1e-3)
+        with torch.no_grad():
+            m.conv.weight.copy_(torch.randn(m.conv.weight.shape,
+                                            generator=g) * 0.2)
+            m.bn.weight.copy_(torch.rand(cout, generator=g) + 0.5)
+            m.bn.bias.copy_(torch.randn(cout, generator=g) * 0.1)
+            m.bn.running_mean.copy_(torch.randn(cout, generator=g) * 0.1)
+            m.bn.running_var.copy_(torch.rand(cout, generator=g) + 0.5)
+        return m
+
+    def plain_conv(leaf):
+        kh, kw, cin, cout = leaf["w"].shape
+        c = nn.Conv2d(cin, cout, (kh, kw), bias=True)
+        with torch.no_grad():
+            c.weight.copy_(torch.randn(c.weight.shape, generator=g) * 0.2)
+            c.bias.copy_(torch.randn(cout, generator=g) * 0.1)
+        return c
+
+    def pair(node):
+        m = nn.Module()
+        m.cv1 = conv_bn(node["cv1"])
+        m.cv2 = conv_bn(node["cv2"])
+        return m
+
+    def c2f(node):
+        m = pair(node)
+        m.m = nn.Sequential(*[pair(b) for b in node["m"]])
+        return m
+
+    inner = nn.Module()
+    for idx, name in convert_ultralytics._BACKBONE:
+        node = shapes[name]
+        if name.startswith(("c2f", "up_c2f", "down_c2f")):
+            inner.add_module(idx, c2f(node))
+        elif name == "sppf":
+            inner.add_module(idx, pair(node))
+        else:
+            inner.add_module(idx, conv_bn(node))
+    det = nn.Module()
+    det.cv2 = nn.ModuleList(nn.Sequential(
+        conv_bn(h["box1"]), conv_bn(h["box2"]), plain_conv(h["box3"]))
+        for h in shapes["heads"])
+    det.cv3 = nn.ModuleList(nn.Sequential(
+        conv_bn(h["cls1"]), conv_bn(h["cls2"]), plain_conv(h["cls3"]))
+        for h in shapes["heads"])
+    inner.add_module("22", det)
+    root = nn.Module()
+    root.add_module("model", inner)
+    return root
+
+
+def write_orbvoc(path: str, k: int = 2, depth: int = 3) -> None:
+    """tests/test_importers.py's tiny DBoW2 text vocabulary: k 2, L 3, one
+    shallow leaf (node 2, a leaf at level 0)."""
+    nodes = [(0, 0, 0x00, 0.0), (0, 1, 0xFF, 0.7), (1, 0, 0x0F, 0.0),
+             (1, 0, 0xF0, 0.0), (3, 1, 0x0F, 0.5), (3, 1, 0x1F, 0.4),
+             (4, 1, 0xF0, 0.3), (4, 1, 0xF8, 0.2)]
+    lines = [f"{k} {depth} 0 0"]
+    for parent, leaf, byte, w in nodes:
+        lines.append(f"{parent} {leaf} " + " ".join([str(byte)] * 32)
+                     + f" {w}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, leaf) of a nested dict/list tree, in order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def phase_importers(device="cuda"):
+    """The asset importers: an ultralytics-layout .pt with seeded random
+    weights and BatchNorm statistics (its shapes from yolov8.init_params)
+    through YoloDetector(weights_path=...pt) against
+    YoloDetector(params=convert(...)) on three 720p walker frames (equal
+    detections); save_params → load_params bit for bit; the ORBvoc text
+    fixture through load_orbvoc_text, descend of 4,096 seeded random
+    descriptors on the device equal to the CPU's."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", f"importers_{device}")
+    os.makedirs(out_dir, exist_ok=True)
+    pt = os.path.join(out_dir, "fake_yolov8n.pt")
+    torch.save({"model": fake_ultralytics(yolov8.init_params(
+        torch.Generator().manual_seed(0)))}, pt)
+    params = convert_ultralytics.convert(pt)
+    cfg = SLAMConfig()
+    from_pt = YoloDetector(cfg, weights_path=pt, device=device)
+    from_tree = YoloDetector(cfg, params=params, device=device)
+    n_det, n_differ = 0, 0
+    for g, *_ in synthetic.generate_dynamic_sequence(cfg.camera, 3, seed=0):
+        rgb = np.stack([g] * 3, -1).astype(np.uint8)
+        a, b = from_pt(rgb), from_tree(rgb)
+        n_differ += not all(torch.equal(x, y) for x, y in zip(a, b))
+        n_det += int(a.mask.sum())
+    npz = os.path.join(out_dir, "params.npz")
+    convert_ultralytics.save_params(params, npz)
+    back = dict(tree_leaves(convert_ultralytics.load_params(npz)))
+    leaves = dict(tree_leaves(params))
+    round_trip = back.keys() == leaves.keys() and all(
+        np.array_equal(np.asarray(leaves[k], np.float32),
+                       np.asarray(back[k], np.float32)) for k in leaves)
+    voc_path = os.path.join(out_dir, "ORBvoc_tiny.txt")
+    write_orbvoc(voc_path)
+    desc = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 2, (4096, 256), dtype=np.uint8))
+    words = bow.descend(bow.load_orbvoc_text(voc_path, device),
+                        desc.to(device)).cpu()
+    want = bow.descend(bow.load_orbvoc_text(voc_path, "cpu"), desc)
+    sync(device)
+    emit("importers", seconds=time.perf_counter() - t0, frames=3,
+         input_size=from_pt.size, detections=n_det, frames_differing=n_differ,
+         leaves=len(leaves), round_trip=round_trip,
+         descend_equal=bool(torch.equal(words, want)),
+         words_hit=int(torch.unique(want).numel()))
+    if n_differ or not round_trip or not torch.equal(words, want):
+        fail(f"importers: {n_differ} frames differ between the .pt and the "
+             f"converted tree, save/load round trip {round_trip}, descend "
+             f"equal {torch.equal(words, want)}")
+
+
+def phase_train_vocab(device="cuda"):
+    """place/pretrain.train_pretrained_vocabulary at the reference's width
+    (k 10, depth 3, 500 descriptors a frame, 424x240, 12 scenes) with 8
+    frames a scene (cut from 24): one B1 and one B2 launch a frame; the
+    self-check's retrieval accuracy at least the reference's at the same
+    settings less one scene."""
+    out = os.path.join(ROOT, "build", f"train_vocab_{device}", "orbvoc.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    n_frames = VOCAB_SCENES * VOCAB_FRAMES
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = pretrain.train_pretrained_vocabulary(
+        out, k=10, depth=3, n_scenes=VOCAB_SCENES,
+        frames_per_scene=VOCAB_FRAMES, per_frame=500, seed=0, verbose=False,
+        device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    floor = REF_VOCAB_ACCURACY - 1.0 / VOCAB_SCENES
+    emit("train_vocab", cut=dict(scenes=VOCAB_SCENES,
+                                 frames_per_scene=[VOCAB_FRAMES, 24]),
+         frames=n_frames, seconds=seconds, launches=launches,
+         reference_accuracy=REF_VOCAB_ACCURACY, **report)
+    if report["scene_retrieval_accuracy"] < floor - 1e-9:
+        fail(f"train_vocab: retrieval accuracy "
+             f"{report['scene_retrieval_accuracy']} below {floor:.4f} (the "
+             f"reference's {REF_VOCAB_ACCURACY} less one scene)")
+    if device == "cuda" and any(launches.get(name, 0) != n_frames
+                                for name in kernels.SOURCES):
+        fail(f"train_vocab: launches {launches} for {n_frames} frames")
+    return launches
+
+
+def grads_against_cpu(init, batch, size, device):
+    """detection_loss and backward on ``batch`` (imgs, boxes, mask) at
+    ``size`` from ``init``, on ``device`` and on the CPU, the convolutions
+    deterministic as in train_step → (losses, the
+    loss's relative difference, each leaf's relative difference: norm of
+    the difference over the norm)."""
+    loss, grads = {}, {}
+    for dev in (device, "cpu"):
+        model = train.trainable_model(init, dev)
+        with train.deterministic_convolutions():      # as train_step
+            lv, _ = train.detection_loss(model, *(t.to(dev) for t in batch),
+                                         size)
+            lv.backward()
+        loss[dev] = float(lv.detach())
+        grads[dev] = {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()}
+    rel = {n: float((grads[device][n] - g).norm() / max(float(g.norm()),
+                                                       1e-30))
+           for n, g in grads["cpu"].items()}
+    return loss, abs(loss[device] - loss["cpu"]) / abs(loss["cpu"]), rel
+
+
+def phase_train_detector(device="cuda"):
+    """semantic/train.train of YOLOv8n at full width, the shipped weights'
+    input size 256, batch 16, from a fixed initialisation
+    (yolov8.init_params of seed 0), on a pool of TRAIN_POOL rendered images
+    for TRAIN_STEPS steps (cut from 384 and 1500), timed as a whole; first
+    and last loss, peak memory; evaluate on 16 held-out images (pool seed
+    991, as cli train-detector's) against the initialisation.  Before it,
+    on the held-out images: launches and busy share of one profiled
+    train_step, then ms a step (median and p90 of TRAIN_TIMED steps after
+    TRAIN_WARMUP, each synchronised, batches gathered by index as train
+    does) and images/s; the held-out pool rendered in RENDER_WORKERS
+    processes (render_scenes) must equal render_pool's serial render.
+    detection_loss and its gradients on the card against the CPU on
+    tests/test_torch_train.py's batch (4 images at 128, pool seed 1; the
+    test's bounds on the loss and the worst leaf) and on the 16 held-out
+    images at 256 (the timed shape; the same bounds, and one on the median
+    leaf)."""
+    t0 = time.perf_counter()
+    parts = {}
+    init = yolov8.init_params(torch.Generator().manual_seed(0))
+    held_out = train.render_pool(TRAIN_EVAL_IMAGES, TRAIN_SIZE, seed=991)
+    in_workers = train.render_scenes(
+        train.POOL_CAMERA, TRAIN_SIZE,
+        train.pool_plan(TRAIN_EVAL_IMAGES, 991), RENDER_WORKERS)
+    pool_equal = len(in_workers) == TRAIN_EVAL_IMAGES and all(
+        np.array_equal(img, held_out[0][i])
+        and np.array_equal(bb[:train.MAX_GT], held_out[1][i][:len(bb)])
+        and int(held_out[2][i].sum()) == min(len(bb), train.MAX_GT)
+        for i, (img, bb) in enumerate(in_workers))
+    if not pool_equal:
+        fail("train_detector: the pool rendered in workers differs from "
+             "the serial render")
+    parts["render_held_out_s"] = time.perf_counter() - t0
+    # card against CPU: one detection_loss + backward, same params
+    small = [torch.from_numpy(a) for a in train.render_pool(4, 128, seed=1)]
+    loss, loss_rel, rel = grads_against_cpu(init, small, 128, device)
+    grad_rel = max(rel.values())
+    held = [torch.from_numpy(a) for a in held_out]
+    loss_256, loss_rel_256, rel_256 = grads_against_cpu(init, held,
+                                                        TRAIN_SIZE, device)
+    worst_256 = max(rel_256, key=rel_256.get)
+    median_256 = statistics.median(rel_256.values())
+    parts["card_vs_cpu_s"] = time.perf_counter() - t0 - sum(parts.values())
+    # one profiled step, then the timed steps, on the held-out images
+    model = train.trainable_model(init, device)
+    opt = train.OptaxAdamW(model.parameters(), 1e-3, TRAIN_STEPS)
+    pool = [t.to(device) for t in held]
+    rng = np.random.default_rng(1)
+
+    def step():
+        idx = torch.from_numpy(rng.integers(0, TRAIN_EVAL_IMAGES,
+                                            TRAIN_BATCH)).to(device)
+        train.train_step(model, opt, *(t[idx] for t in pool), TRAIN_SIZE)
+    for _ in range(2):
+        step()
+    sync(device)
+    step_launches, step_dev_ms, step_wall_ms = profile_launches(step, device)
+    times = []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        t1 = time.perf_counter()
+        step()
+        sync(device)
+        times.append((time.perf_counter() - t1) * 1e3)
+    steady = np.asarray(times[TRAIN_WARMUP:])
+    ms = float(np.median(steady))
+    del model, opt, pool
+    parts["profiled_and_timed_steps_s"] = time.perf_counter() - t0 \
+        - sum(parts.values())
+    # the run
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_train = time.perf_counter()
+    params, history = train.train(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, input_size=TRAIN_SIZE,
+        pool_images=TRAIN_POOL, lr=1e-3, seed=0, params=init,
+        log_every=TRAIN_STEPS // 10, verbose=False, device=device)
+    train_s = time.perf_counter() - t_train
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+    parts["train_s"] = train_s
+    trained = train.evaluate_pool(params, *held_out, device=device)
+    base = train.evaluate_pool(init, *held_out, device=device)
+    parts["evaluate_s"] = time.perf_counter() - t0 - sum(parts.values())
+    emit("train_detector",
+         cut=dict(pool=[TRAIN_POOL, 384], steps=[TRAIN_STEPS, 1500]),
+         input_size=TRAIN_SIZE, batch=TRAIN_BATCH, train_s=train_s,
+         ms_per_step=ms, ms_per_step_p90=float(np.percentile(steady, 90)),
+         timed_steps=TRAIN_TIMED, images_per_s=TRAIN_BATCH * 1e3 / ms,
+         peak_mem_gb=peak,
+         profiled_step=dict(launches=step_launches, device_ms=step_dev_ms,
+                            wall_ms=step_wall_ms,
+                            busy_share=step_dev_ms / step_wall_ms),
+         loss_first=history[0], loss_last=history[-1], history=history,
+         evaluate=trained, evaluate_init=base,
+         card_vs_cpu=dict(loss=loss, loss_rel=loss_rel, grad_rel=grad_rel,
+                          bounds=[TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL]),
+         card_vs_cpu_256=dict(loss=loss_256, loss_rel=loss_rel_256,
+                              worst_leaf=worst_256,
+                              worst=rel_256[worst_256], median=median_256,
+                              median_bound=TRAIN_GRAD_MEDIAN_TOL),
+         pool_workers_equal=pool_equal, parts=parts,
+         seconds=time.perf_counter() - t0)
+    if not history[-1] < history[0]:
+        fail(f"train_detector: loss {history[0]} → {history[-1]} did not "
+             "fall")
+    if not trained["mean_best_iou"] >= base["mean_best_iou"] + 0.05:
+        fail(f"train_detector: mean best IoU {trained['mean_best_iou']} "
+             f"against {base['mean_best_iou']} at initialisation (needs "
+             "+0.05)")
+    if loss_rel > TRAIN_LOSS_REL_TOL or grad_rel > TRAIN_GRAD_REL_TOL:
+        fail(f"train_detector: the card's loss differs from the CPU's by "
+             f"{loss_rel:.3g} and a gradient by {grad_rel:.3g} (bounds "
+             f"{TRAIN_LOSS_REL_TOL}, {TRAIN_GRAD_REL_TOL})")
+    if loss_rel_256 > TRAIN_LOSS_REL_TOL or rel_256[worst_256] > \
+            TRAIN_GRAD_REL_TOL or median_256 > TRAIN_GRAD_MEDIAN_TOL:
+        fail(f"train_detector: at {TRAIN_BATCH} images of {TRAIN_SIZE} the "
+             f"card's loss differs from the CPU's by {loss_rel_256:.3g}, "
+             f"the worst leaf's gradient by {rel_256[worst_256]:.3g} and "
+             f"the median leaf's by {median_256:.3g} (bounds "
+             f"{TRAIN_LOSS_REL_TOL}, {TRAIN_GRAD_REL_TOL}, "
+             f"{TRAIN_GRAD_MEDIAN_TOL})")
 
 
 def fleet_config() -> SLAMConfig:
@@ -1244,13 +1571,17 @@ def main() -> None:
     phase_yolo()
     phase_dynamic_small()
     phase_dynamic_frames()
+    phase_importers()
+    vocab_launches = phase_train_vocab()
+    phase_train_detector()
     for r in rows:
         # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]
         r["fleet_launches"] = fleet_launches.get(r["name"], 0)
+        r["train_vocab_launches"] = vocab_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
-            "fleet_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape")
+            "fleet_launches", "train_vocab_launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     emit("done", seconds=time.perf_counter() - T_START)
     print(smi_line)

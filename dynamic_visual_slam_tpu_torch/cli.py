@@ -1,5 +1,6 @@
-"""Command-line entry point of the PyTorch port: ``run``, the reference
-package's ``cli run`` (its other subcommands are not ported yet).
+"""Command-line entry point of the PyTorch port: the reference package's
+``run``, ``info``, ``train-detector`` and ``train-vocab`` (``parity`` and
+``bench`` are not ported yet).
 
     python -m dynamic_visual_slam_tpu_torch.cli run --source synthetic \
         --frames 120
@@ -8,8 +9,18 @@ package's ``cli run`` (its other subcommands are not ported yet).
     python -m dynamic_visual_slam_tpu_torch.cli run --source /data/tum_fr3 \
         --preset tum_fr3 --detector none
 
-Runs on the card (``--device cuda``, the default; it raises without one)
-unless ``--device cpu`` is given.  Outputs (``--out-dir``): frontend and
+    python -m dynamic_visual_slam_tpu_torch.cli info --preset tum_fr3
+    python -m dynamic_visual_slam_tpu_torch.cli train-detector --steps 1500 \
+        --out yolov8n_synth.npz
+    python -m dynamic_visual_slam_tpu_torch.cli train-vocab \
+        --out orbvoc_synth.npz
+
+``run``, ``train-detector`` and ``train-vocab`` run on the card
+(``--device cuda``, the default; they raise without one) unless ``--device
+cpu`` is given.  ``train-detector`` writes the reference's YOLOv8 npz with
+the input size embedded (its training images render in up to 8 worker
+processes), ``train-vocab`` its vocabulary npz; both packages read both.
+``run`` writes (``--out-dir``) frontend and
 keyframe trajectories (TUM format), landmark and trajectory PLYs, and the
 stats JSON (the system's counters, ``fps``, ``wall_s``, ``landmarks``,
 per-stage timings, ``ate_rmse_m`` on synthetic sources).  ``--save-state``
@@ -38,7 +49,7 @@ def _build_config(args) -> SLAMConfig:
     cfg = SLAMConfig.preset(args.preset) if args.preset else SLAMConfig()
     if args.width and args.height:
         cfg = cfg.replace(camera=cfg.camera.scaled(args.width, args.height))
-    if args.anchor is not None:
+    if getattr(args, "anchor", None) is not None:
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, anchor_to_keyframe=args.anchor))
     return cfg
@@ -59,6 +70,9 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
             YoloDetector)
         detector = YoloDetector(cfg, weights_path=args.weights,
                                 device=args.device)
+        if not args.weights:
+            print("warning: no detector weights given — random init "
+                  "(detections will be meaningless)", file=sys.stderr)
     elif args.detector == "gt":
         # ground-truth bboxes from the dynamic synthetic world
         from dynamic_visual_slam_tpu_torch.semantic.detector import GTDetector
@@ -266,6 +280,64 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
     return 0
 
 
+def cmd_info(args, out: Optional[dict] = None) -> int:
+    print(_build_config(args).to_json())
+    return 0
+
+
+def cmd_train_detector(args, out: Optional[dict] = None) -> int:
+    """Train YOLOv8n on the synthetic dynamic world, evaluate it on held-out
+    scenes, and save weights ``run --detector yolov8 --weights`` loads."""
+    from dynamic_visual_slam_tpu_torch.models.convert_ultralytics import (
+        save_params)
+    from dynamic_visual_slam_tpu_torch.semantic import train as T
+
+    params, history = T.train(
+        steps=args.steps, batch=args.train_batch,
+        input_size=args.input_size, pool_images=args.pool,
+        lr=args.lr, seed=args.seed, device=args.device)
+    metrics = T.evaluate(params, input_size=args.input_size,
+                         n_images=args.eval_images, seed=args.seed + 991,
+                         device=args.device)
+    # the native input size, which YoloDetector adopts on load
+    params["input_size"] = int(args.input_size)
+    save_params(params, args.out)
+    report = dict(weights=args.out, steps=args.steps,
+                  input_size=args.input_size,
+                  loss_first=history[0], loss_last=history[-1],
+                  **{k: (round(v, 4) if isinstance(v, float) else v)
+                     for k, v in metrics.items()})
+    if args.in_loop_frames > 0:
+        # culling off against GT boxes against this detector, the same
+        # dynamic sequence: ATE and walker landmarks
+        report["in_loop"] = T.in_loop_eval(
+            params, n_frames=args.in_loop_frames, seed=args.seed,
+            device=args.device)
+    print(json.dumps(report, indent=2))
+    print(f"use: dynamic_visual_slam_tpu_torch run --detector yolov8 "
+          f"--weights {args.out}")
+    if out is not None:
+        out.update(report=report, params=params, history=history)
+    return 0
+
+
+def cmd_train_vocab(args, out: Optional[dict] = None) -> int:
+    """Train the pretrained BoW vocabulary asset from synthetic worlds and
+    the port's ORB extractor."""
+    from dynamic_visual_slam_tpu_torch.place.pretrain import (
+        train_pretrained_vocabulary)
+
+    report = train_pretrained_vocabulary(
+        args.out, k=args.branching, depth=args.depth,
+        n_scenes=args.scenes, frames_per_scene=args.frames_per_scene,
+        per_frame=args.per_frame, seed=args.seed, device=args.device)
+    print(json.dumps(report, indent=2))
+    print(f"use: dynamic_visual_slam_tpu_torch run --vocab {report['path']}")
+    if out is not None:
+        out.update(report=report)
+    return 0
+
+
 def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
     """Parse ``argv`` and run the subcommand.  ``out``, a dict, receives
     ``system`` (the run's SLAMSystem), ``stats`` and ``gt_positions`` (the
@@ -290,7 +362,8 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
     pr.add_argument("--detector", default="none",
                     choices=["none", "yolov8", "gt"])
     pr.add_argument("--weights", default=None,
-                    help="YOLOv8 weights (the reference's .npz)")
+                    help="YOLOv8 weights: the reference's .npz or an "
+                         "ultralytics .pt (none: random init)")
     pr.add_argument("--out-dir", default="slam_out")
     pr.add_argument("--batch", type=int, default=0, metavar="B",
                     help="offline throughput mode: frames through "
@@ -327,6 +400,47 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     pr.set_defaults(fn=cmd_run)
+
+    pt = sub.add_parser("train-detector",
+                        help="train YOLOv8n on the synthetic dynamic world "
+                             "(no pretrained weights needed)")
+    pt.add_argument("--steps", type=int, default=1500)
+    pt.add_argument("--train-batch", type=int, default=16)
+    pt.add_argument("--input-size", type=int, default=256)
+    pt.add_argument("--pool", type=int, default=384,
+                    help="rendered training images")
+    pt.add_argument("--lr", type=float, default=1e-3)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--eval-images", type=int, default=48)
+    pt.add_argument("--in-loop-frames", type=int, default=0, metavar="N",
+                    help="after training, run the N-frame dynamic walker "
+                         "sequence with culling off / GT bboxes / this "
+                         "detector and report ATE + walker-landmark counts")
+    pt.add_argument("--out", default="yolov8n_synth.npz")
+    pt.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    pt.set_defaults(fn=cmd_train_detector)
+
+    pv = sub.add_parser("train-vocab",
+                        help="train the pretrained BoW vocabulary asset "
+                             "(ORBvoc.txt equivalent, no downloads)")
+    pv.add_argument("--branching", type=int, default=10)
+    pv.add_argument("--depth", type=int, default=3)
+    pv.add_argument("--scenes", type=int, default=12)
+    pv.add_argument("--frames-per-scene", type=int, default=24)
+    pv.add_argument("--per-frame", type=int, default=500,
+                    help="descriptors sampled per frame")
+    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--out", default="assets/orbvoc_synth.npz")
+    pv.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    pv.set_defaults(fn=cmd_train_vocab)
+
+    pi = sub.add_parser("info", help="print the resolved config")
+    pi.add_argument("--preset", default=None)
+    pi.add_argument("--width", type=int, default=None)
+    pi.add_argument("--height", type=int, default=None)
+    pi.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
     return args.fn(args, out)

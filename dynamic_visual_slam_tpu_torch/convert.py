@@ -167,7 +167,13 @@ def load_params(path: str) -> Dict[str, Any]:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.asarray(data[key], np.float32)
+    return _yolo_tree(root)
 
+
+def _yolo_tree(root: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dicts keyed by path parts → the parameter tree: a dict whose
+    keys are all digits becomes a list; ``num_classes`` from the last class
+    convolution."""
     def listify(node):
         if isinstance(node, dict):
             if node and all(k.isdigit() for k in node):
@@ -180,12 +186,14 @@ def load_params(path: str) -> Dict[str, Any]:
     return params
 
 
-def yolo_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def yolo_state_dict(params: Mapping[str, Any], dtype=torch.bfloat16
+                    ) -> Dict[str, torch.Tensor]:
     """The reference's YOLOv8 parameter tree (numpy: from ``load_params``,
     or ``np.asarray`` of its ``init_params``) → ``YOLOv8``'s state dict:
-    ``w`` HWIO → OIHW, every array rounded to bf16 (round to nearest even,
-    as the reference's cast).  ``num_classes`` and ``input_size`` are not
-    weights and are skipped."""
+    ``w`` HWIO → OIHW, every array cast to ``dtype``: bf16 rounds to
+    nearest even, as the reference's cast; float32 keeps training masters
+    as they are.  ``num_classes`` and ``input_size`` are not weights and
+    are skipped."""
     out: Dict[str, torch.Tensor] = {}
 
     def rec(node, prefix):
@@ -201,7 +209,23 @@ def yolo_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if prefix.endswith("w."):
                 a = a.transpose(3, 2, 0, 1)
             out[prefix[:-1]] = torch.from_numpy(
-                np.ascontiguousarray(a)).to(torch.bfloat16)
+                np.ascontiguousarray(a)).to(dtype)
 
     rec(params, "")
     return out
+
+
+def yolo_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``yolo_state_dict``'s inverse: a ``YOLOv8`` state dict → the
+    reference's parameter tree as numpy float32 (``w`` OIHW → HWIO; lists
+    where every key is a digit) with ``num_classes``."""
+    root: Dict[str, Any] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        a = t.detach().to("cpu", torch.float32).numpy()
+        node[parts[-1]] = np.ascontiguousarray(
+            a.transpose(2, 3, 1, 0) if parts[-1] == "w" else a)
+    return _yolo_tree(root)

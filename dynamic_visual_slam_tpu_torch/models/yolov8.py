@@ -11,6 +11,13 @@ Layout is NCHW with OIHW weights (the reference runs NHWC/HWIO); every
 channel concat keeps the reference's order, and ``decode`` permutes to
 NHWC before it splits the box channels side-major into (4, REG_MAX).
 
+``init_params`` builds the reference's random initialisation as numpy
+(drawn from a ``torch.Generator``, so not ``jax.random``'s bits).  A model
+in training mode (``model.train()``, with ``requires_grad_()``) holds
+float32 masters and rounds each convolution's weights to bf16 where it uses
+them, as the reference's ``_conv`` under ``semantic/train.py``; in eval
+mode the weights are used as they are, already bf16 values.
+
 Rounding follows the reference's program as XLA compiles it: convolution
 inputs and weights rounded to bf16, the convolution summed in float32 and
 left there (XLA keeps the bf16 convolution's output in float32 — excess
@@ -28,8 +35,9 @@ suppress, with no host read.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,8 +57,10 @@ BF16 = torch.bfloat16
 class Conv(nn.Module):
     """Convolution + bias with the reference's rounding points; SiLU and a
     bf16 result unless ``act`` is False (the head's last 1x1 convolutions,
-    which return float32).  Weights and bias are float32 tensors holding
-    bf16 values (``convert.yolo_state_dict`` rounds them)."""
+    which return float32).  Weights and bias are float32 tensors: bf16
+    values for inference (``convert.yolo_state_dict`` rounds them), float32
+    masters in training mode, whose weights are rounded to bf16 at use (the
+    bias is not, as in the reference)."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  act: bool = True):
@@ -63,12 +73,61 @@ class Conv(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(BF16).to(torch.float32), self.w,
+        w = self.w.to(BF16).to(torch.float32) if self.training else self.w
+        y = F.conv2d(x.to(BF16).to(torch.float32), w,
                      stride=self.stride, padding=self.pad)
         y = y + self.b[:, None, None]
         if not self.act:
             return y
         return (y * torch.sigmoid(y)).to(BF16)
+
+
+def init_params(generator: torch.Generator, num_classes: int = NUM_CLASSES
+                ) -> Dict[str, Any]:
+    """Random parameter tree in the reference's layout (BN folded, HWIO
+    ``w``), as numpy float32 holding bf16 values: each weight normal times
+    sqrt(2 / fan_in), rounded to bf16; zero biases; ``num_classes``.  The
+    draws come from ``generator`` in the reference's order of layers."""
+    c = CHANNELS
+    n1, n2 = DEPTHS
+
+    def conv(cin, cout, k=1):
+        w = torch.randn((k, k, cin, cout), generator=generator)
+        w = w * (2.0 / (cin * k * k)) ** 0.5
+        return dict(w=w.to(BF16).to(torch.float32).numpy(),
+                    b=np.zeros(cout, np.float32))
+
+    def c2f(cin, cout, n):
+        h = cout // 2
+        return dict(
+            cv1=conv(cin, cout, 1),
+            cv2=conv(cout + n * h, cout, 1),
+            m=[dict(cv1=conv(h, h, 3), cv2=conv(h, h, 3)) for _ in range(n)])
+
+    params: Dict[str, Any] = dict(
+        stem=conv(3, c[0], 3),
+        down1=conv(c[0], c[1], 3), c2f1=c2f(c[1], c[1], n1),
+        down2=conv(c[1], c[2], 3), c2f2=c2f(c[2], c[2], n2),
+        down3=conv(c[2], c[3], 3), c2f3=c2f(c[3], c[3], n2),
+        down4=conv(c[3], c[4], 3), c2f4=c2f(c[4], c[4], n1),
+        sppf=dict(cv1=conv(c[4], c[4] // 2, 1),
+                  cv2=conv(c[4] * 2, c[4], 1)),
+        up_c2f1=c2f(c[4] + c[3], c[3], n1),
+        up_c2f2=c2f(c[3] + c[2], c[2], n1),
+        down_conv1=conv(c[2], c[2], 3),
+        down_c2f1=c2f(c[2] + c[3], c[3], n1),
+        down_conv2=conv(c[3], c[3], 3),
+        down_c2f2=c2f(c[3] + c[4], c[4], n1),
+    )
+    ch_box = max(16, c[2] // 4, REG_MAX * 4)
+    ch_cls = max(c[2], min(num_classes, 100))
+    params["heads"] = [dict(
+        box1=conv(ci, ch_box, 3), box2=conv(ch_box, ch_box, 3),
+        box3=conv(ch_box, 4 * REG_MAX, 1),
+        cls1=conv(ci, ch_cls, 3), cls2=conv(ch_cls, ch_cls, 3),
+        cls3=conv(ch_cls, num_classes, 1)) for ci in (c[2], c[3], c[4])]
+    params["num_classes"] = num_classes
+    return params
 
 
 class Bottleneck(nn.Module):

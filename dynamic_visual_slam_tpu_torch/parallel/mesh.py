@@ -215,9 +215,12 @@ class SLAMFleet:
         """Semantic stage for the fleet: → fn mapping (B, H, W) gray frames
         to per-stream Detections (leading dim B) on the fleet's device,
         ready for ``step``.  The single-stream detector's letterbox
-        (``semantic/detector.letterbox``: [0, 1], fill 0.447) at the
-        weights' input size (``params["input_size"]`` when they embed one,
-        else ``input_size``, else ``cfg.semantic.input_size``), one forward
+        (``semantic/detector.letterbox``: [0, 1], fill 0.447) at
+        ``input_size`` when the caller gives one, as the reference's; else
+        at the size the weights embed (``params["input_size"]``), else
+        ``cfg.semantic.input_size``.  (The reference's default is 640
+        whatever the weights embed; the port's follows its single-stream
+        ``YoloDetector``, 256 with the shipped weights.)  One forward
         for the B frames, NMS, the boxes unletterboxed and clipped to the
         frame, class id + 1.  No box margin or tracks (the reference's
         fleet has none).  ``params``: the reference's YOLOv8 tree as numpy
@@ -225,9 +228,12 @@ class SLAMFleet:
         from dynamic_visual_slam_tpu_torch.semantic.detector import (
             build_model, letterbox, letterbox_geometry, resize_tensor)
         cfg, dev = self.cfg, self._dev
-        size = int(np.asarray(params["input_size"], np.float32)) \
-            if "input_size" in params else \
-            (input_size or cfg.semantic.input_size)
+        if input_size is not None:
+            size = int(input_size)
+        elif "input_size" in params:
+            size = int(np.asarray(params["input_size"], np.float32))
+        else:
+            size = cfg.semantic.input_size
         model = build_model(params, dev)
         sc = cfg.semantic
         h, w = cfg.camera.height, cfg.camera.width
@@ -251,10 +257,15 @@ class SLAMFleet:
         return detect
 
 
-def sharded_detector_apply(params: Dict[str, Any], device="cuda"):
+def sharded_detector_apply(params: Dict[str, Any], input_size: int = 640,
+                           device="cuda"):
     """→ fn: (B, S, S, 3) float32 images in [0, 1] → batched RawDetections
     (leading dim B), one forward for the B images on ``device`` (the
-    reference splits B over its mesh).  ``params`` as ``make_detector``'s."""
+    reference splits B over its mesh).  ``params`` as ``make_detector``'s.
+    ``input_size`` is the reference's parameter, kept for its signature:
+    there it reaches ``yolov8.detect``, which does not use it past its
+    signature, and here too the images' own S is the size the network
+    runs at."""
     from dynamic_visual_slam_tpu_torch.semantic.detector import build_model
     model = build_model(params, resolve_device(device))
 

@@ -78,6 +78,9 @@ def descend(voc: Vocabulary, desc_bits: torch.Tensor) -> torch.Tensor:
 
 def _vocabulary(k, depth, levels, valids, weights, device) -> Vocabulary:
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bow: device='cuda' but torch.cuda.is_available() "
+                           "is False; pass device='cpu'")
     return Vocabulary(
         k=int(k), depth=int(depth),
         levels=[torch.as_tensor(np.asarray(lv, np.uint8), device=dev)
@@ -162,6 +165,59 @@ def train_vocabulary(descs: np.ndarray, k: int = 10, depth: int = 3,
     if not np.isfinite(idf).all() or idf.max() <= 0:
         idf = np.ones(n_words)
     return _vocabulary(k, depth, levels, valids, np.maximum(idf, 1e-3),
+                       device)
+
+
+def load_orbvoc_text(path: str, device: Any = "cuda") -> Vocabulary:
+    """Load ORB-SLAM's pretrained ORBvoc.txt (DBoW2's text format) onto
+    ``device``: a ``k L scoring weighting`` header, then one node per line
+    (parent id, is_leaf, 32 byte values, weight; ids implicit in file order,
+    root 0).  Bytes unpack to bits little-endian.  DBoW2 trees are
+    unbalanced, so a leaf above the bottom level is propagated down as a
+    single-child chain and ``descend`` lands on a weighted word."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        nodes = []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parent = int(parts[0])
+            bits = np.unpackbits(
+                np.asarray([int(x) for x in parts[2:34]], np.uint8)[:, None],
+                axis=1, bitorder="little").reshape(-1)
+            weight = float(parts[34])
+            nodes.append((parent, int(parts[1]), bits, weight))
+
+    # dense level tables: children of node n at rows n*k .. n*k+k-1
+    levels = [np.zeros((k ** (l + 1), 256), np.uint8) for l in range(depth)]
+    valids = [np.zeros(k ** (l + 1), bool) for l in range(depth)]
+    weights = np.zeros(k ** depth, np.float32)
+    pos = {0: (-1, 0)}          # node id → (level, slot); root at level -1
+    child_count = {0: 0}
+    shallow_leaves = []
+    for i, (parent, is_leaf, bits, w) in enumerate(nodes, start=1):
+        pl, pslot = pos[parent]
+        lvl = pl + 1
+        slot = pslot * k + child_count.get(parent, 0)
+        child_count[parent] = child_count.get(parent, 0) + 1
+        child_count[i] = 0
+        pos[i] = (lvl, slot)
+        levels[lvl][slot] = bits
+        valids[lvl][slot] = True
+        if lvl == depth - 1:
+            weights[slot] = w
+        elif is_leaf:
+            shallow_leaves.append((lvl, slot, bits, w))
+    for lvl, slot, bits, w in shallow_leaves:
+        s = slot
+        for l2 in range(lvl + 1, depth):
+            s = s * k
+            levels[l2][s] = bits
+            valids[l2][s] = True
+        weights[s] = w
+    return _vocabulary(k, depth, levels, valids, np.maximum(weights, 1e-6),
                        device)
 
 

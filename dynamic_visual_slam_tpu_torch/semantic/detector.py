@@ -99,30 +99,34 @@ def build_model(params: Dict[str, Any], device) -> yolov8.YOLOv8:
 
 
 class YoloDetector:
-    """YOLOv8n on ``device`` with the reference's weights: ``weights_path``
-    (the reference's npz) or ``params`` (its parameter tree as numpy, e.g.
-    from ``convert.load_params``).  Weights that embed an ``input_size``
-    (those trained by the reference's semantic/train.py, the shipped
+    """YOLOv8n on ``device``: ``params`` (the reference's parameter tree as
+    numpy, e.g. from ``convert.load_params``), else ``weights_path`` (the
+    reference's npz, or an ultralytics ``.pt`` through
+    ``models/convert_ultralytics.convert``), else, as the reference does
+    when no weights are given, a random initialisation from ``seed``
+    (``yolov8.init_params``): it drives the whole compute path, but its
+    boxes are meaningless.  A ``weights_path`` that does not exist raises
+    (the reference falls back to the random weights).  Weights that embed
+    an ``input_size`` (those trained by ``semantic/train.py``, the shipped
     ``assets/yolov8n_synth.npz`` among them: 256) run at that size, as the
-    reference's; otherwise at ``cfg.semantic.input_size``.  The reference's
-    random initialisation without weights is not ported: weights are
-    required."""
+    reference's; otherwise at ``cfg.semantic.input_size``."""
 
     def __init__(self, cfg: SLAMConfig, weights_path: Optional[str] = None,
-                 params: Optional[Dict[str, Any]] = None, device="cuda"):
+                 params: Optional[Dict[str, Any]] = None, seed: int = 0,
+                 device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.size = cfg.semantic.input_size
-        if params is None:
-            if not weights_path:
-                raise ValueError("YoloDetector needs weights_path or params")
-            if weights_path.endswith(".pt"):
-                raise NotImplementedError(
-                    "ultralytics .pt import is not ported; use the npz")
+        if params is None and weights_path:
             if not os.path.exists(weights_path):
                 raise FileNotFoundError(weights_path)
-            from dynamic_visual_slam_tpu_torch.convert import load_params
-            params = load_params(weights_path)
+            from dynamic_visual_slam_tpu_torch.models import (
+                convert_ultralytics as cu)
+            params = cu.convert(weights_path) \
+                if weights_path.endswith(".pt") \
+                else cu.load_params(weights_path)
+        elif params is None:
+            params = yolov8.init_params(torch.Generator().manual_seed(seed))
         if "input_size" in params:
             self.size = int(np.asarray(params["input_size"], np.float32))
         self.model = build_model(params, self.device)

@@ -1,5 +1,6 @@
-"""The port's command line, ``cli run``, on the CPU, and the host modules
-its outputs go through, against the JAX package.
+"""The port's command line, ``cli run``, ``info``, ``train-detector`` and
+``train-vocab``, on the CPU, and the host modules its outputs go through,
+against the JAX package.
 
 - ``cli run --source dynamic --detector gt`` at 160x120 writes the
   trajectory that SLAMSystem gives on the same frames and detections, frame
@@ -20,6 +21,12 @@ its outputs go through, against the JAX package.
 - ``--save-state`` then ``--resume``: the checkpoint restores the saved
   map exactly and the resumed run carries on from its counters; a missing
   checkpoint or another config exits with 2.
+- ``info`` prints the reference's JSON to the byte; ``train-vocab`` and
+  ``train-detector`` at toy size write files the reference's loaders read
+  (the vocabulary's tables and the detector's weights and input size
+  exactly); ``run --detector yolov8`` without ``--weights`` runs on a
+  random initialisation and warns; the training commands default to the
+  card.
 - The host modules the outputs go through are numpy copies of the
   reference's: TUM trajectory files (``quat_from_mat``, ``write_tum``,
   ``read_tum``), the ATE (``umeyama_alignment``, ``ate_rmse``; 1e-12),
@@ -365,3 +372,78 @@ def test_stage_timer_matches_reference(monkeypatch):
         assert extra == dict(median_ms=round(float(np.median(samples)), 3),
                              p90_ms=round(float(np.percentile(samples, 90)),
                                           3))
+
+
+@pytest.mark.parametrize("argv", [[], ["--preset", "tum_fr3"],
+                                  ["--width", "320", "--height", "240"]])
+def test_info_prints_the_reference_json(argv, capsys):
+    assert cli.main(["info"] + argv) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(["info"] + argv) == 0
+    assert got == capsys.readouterr().out
+    want = {"--preset": 640, "--width": 320}[argv[0]] if argv else 1280
+    assert json.loads(got)["camera"]["width"] == want
+
+
+def test_train_vocab_writes_what_the_reference_reads(tmp_path):
+    from dynamic_visual_slam_tpu.place import bow as jbow
+    from dynamic_visual_slam_tpu_torch.place import bow as pbow
+    path = str(tmp_path / "voc.npz")
+    d = {}
+    assert cli.main(["train-vocab", "--device", "cpu", "--scenes", "2",
+                     "--frames-per-scene", "2", "--per-frame", "100",
+                     "--branching", "4", "--depth", "2", "--out", path],
+                    out=d) == 0
+    assert d["report"]["n_words"] == 16
+    want = jbow.load_vocabulary(path)
+    got = pbow.load_vocabulary(path, "cpu")
+    assert (want.k, want.depth) == (4, 2)
+    for a, b in zip(got.levels, want.levels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(got.word_weights.numpy(),
+                                  np.asarray(want.word_weights))
+
+
+def test_train_detector_writes_what_the_reference_reads(tmp_path):
+    from dynamic_visual_slam_tpu.config import SLAMConfig as JConfig
+    from dynamic_visual_slam_tpu.models.convert_ultralytics import \
+        load_params as jload
+    from dynamic_visual_slam_tpu.semantic.detector import YoloDetector as JDet
+    from dynamic_visual_slam_tpu_torch.semantic.detector import YoloDetector
+    path = str(tmp_path / "w.npz")
+    d = {}
+    assert cli.main(["train-detector", "--device", "cpu", "--steps", "6",
+                     "--pool", "6", "--input-size", "64", "--train-batch",
+                     "2", "--eval-images", "2", "--out", path], out=d) == 0
+    rep = d["report"]
+    assert rep["input_size"] == 64 and rep["steps"] == 6
+    assert {"loss_first", "loss_last", "mean_best_iou", "recall",
+            "precision"} <= set(rep)
+    ref = jload(path)
+    assert int(np.asarray(ref["input_size"], np.float32)) == 64
+    np.testing.assert_array_equal(np.asarray(ref["heads"][2]["cls3"]["w"],
+                                             np.float32),
+                                  d["params"]["heads"][2]["cls3"]["w"])
+    assert JDet(JConfig(), weights_path=path).size == 64
+    assert YoloDetector(SLAMConfig(), weights_path=path,
+                        device="cpu").size == 64
+
+
+def test_run_with_a_random_init_detector(tmp_path, capsys):
+    """``run --detector yolov8`` without ``--weights`` runs on random
+    weights, as the reference's, and warns that its boxes are
+    meaningless."""
+    d = {}
+    argv = ["run", "--device", "cpu", "--source", "dynamic", "--detector",
+            "yolov8", "--width", "160", "--height", "120", "--frames", "3",
+            "--out-dir", str(tmp_path)]
+    assert cli.main(argv, out=d) == 0
+    assert d["stats"]["frames"] == 3
+    assert "random init" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["train-detector", "train-vocab"])
+def test_train_commands_default_to_the_card(cmd, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([cmd, "--out", str(tmp_path / "x.npz")])

@@ -158,7 +158,7 @@ def test_yolo_detector_end_to_end_on_the_cpu():
     assert (b >= 0).all() and (b[:, [0, 2]] <= 423).all() \
         and (b[:, [1, 3]] <= 239).all()
     assert (d.category.numpy()[d.mask.numpy()] >= 1).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         pdet.YoloDetector(PSLAMConfig(), weights_path="x.pt", device="cpu")
     with pytest.raises(FileNotFoundError):
         pdet.YoloDetector(PSLAMConfig(), weights_path="missing.npz",

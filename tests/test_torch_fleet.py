@@ -37,6 +37,9 @@ Tolerances, and why:
   ``make_detector``), valid rows and classes equal, boxes within
   tests/test_torch_yolo.py's per-candidate 2.75 px at the network's input,
   i.e. 2.75 / scale frame pixels.
+- ``make_detector`` with an explicit ``input_size=640`` and the shipped
+  weights (which embed 256): the network's canvas equals the single-stream
+  letterbox at 640 exactly; without a size it is 256.
 """
 
 import jax.numpy as jnp
@@ -237,3 +240,40 @@ def test_make_detector_matches_reference_pieces():
     assert n_diff == 0
     assert n_valid >= len(grays)
     assert worst <= tol
+
+
+def test_make_detector_honours_an_explicit_input_size(monkeypatch):
+    """The shipped weights embed input size 256; an explicit
+    ``input_size=640`` wins, as in the reference's ``make_detector``: the
+    letterbox geometry (scale 2, padding (0, 80) for 320x240 frames) and the
+    network's canvas are 640, equal to the single-stream letterbox at 640.
+    Without a size, the fleet keeps the weights' 256 (the port's default;
+    the reference's is 640, ROADMAP §C)."""
+    from dynamic_visual_slam_tpu_torch.models import yolov8 as py
+    from dynamic_visual_slam_tpu_torch.semantic.detector import (
+        letterbox, letterbox_geometry)
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
+                       cx=159.5, cy=119.5)
+    cfg = PSLAMConfig.from_dict(SLAMConfig().replace(camera=cam).to_dict())
+    params = convert.load_params(WEIGHTS)
+    assert int(params["input_size"]) == 256
+    canvases = []
+    real = py.detect_batch
+
+    def spy(model, imgs, *args, **kwargs):
+        canvases.append(imgs.clone())
+        return real(model, imgs, *args, **kwargs)
+
+    monkeypatch.setattr(py, "detect_batch", spy)
+    grays = np.stack([g for g, *_ in synthetic.generate_dynamic_sequence(
+        cam, 2, seed=0)])
+    fleet = SLAMFleet(cfg, 2, device="cpu")
+    out = fleet.make_detector(params, input_size=640)(grays)
+    assert letterbox_geometry(240, 320, 640) == (2.0, (480, 640), (0, 80))
+    want, scale, pad = letterbox(np.stack([grays] * 3, -1), 640, "cpu")
+    assert (scale, pad) == (2.0, (0, 80))
+    assert canvases[0].shape == (2, 640, 640, 3)
+    torch.testing.assert_close(canvases[0], want, rtol=0, atol=0)
+    assert out.boxes.shape == (2, PCFG.semantic.max_detections, 4)
+    fleet.make_detector(params)(grays)
+    assert canvases[1].shape == (2, 256, 256, 3)

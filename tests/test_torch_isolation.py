@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX or anything of the JAX package; its entry points default to the
+imports JAX, optax or anything of the JAX package; its entry points default to the
 card and raise without one; its kernels are built without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
 query, loop verification, the pose-graph loop correction, the detector's
@@ -38,7 +38,7 @@ from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dynamic_visual_slam_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "dynamic_visual_slam_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "dynamic_visual_slam_tpu"}
 
 
 def _port_files():
@@ -68,7 +68,9 @@ def test_no_jax_or_reference_imports():
                 "semantic/detector.py", "pipeline/runner.py",
                 "pipeline/sync.py", "cli.py", "io/tum.py", "utils/viz.py",
                 "utils/profiling.py", "pipeline/wire.py",
-                "pipeline/snapshot.py", "parallel/mesh.py"):
+                "pipeline/snapshot.py", "parallel/mesh.py",
+                "models/convert_ultralytics.py", "place/pretrain.py",
+                "semantic/train.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)

@@ -309,6 +309,75 @@ def test_yolo_on_the_card_matches_the_cpu(card):
         sorted(dw.classes[dw.valid].tolist())
 
 
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(card):
+    """One semantic/train.train_step (detection_loss, backward, the
+    optax-equivalent AdamW) from yolov8.init_params at input size 128 on 4
+    rendered images, on the card and on the CPU: the loss and each
+    parameter's gradient within tests/test_torch_train.py's bounds against
+    the reference (7.9e-7 relative; 0.0515, norm of the difference over the
+    norm), every parameter updated and finite."""
+    from dynamic_visual_slam_tpu_torch import convert
+    from dynamic_visual_slam_tpu_torch.models import yolov8
+    from dynamic_visual_slam_tpu_torch.semantic import train
+
+    init = yolov8.init_params(torch.Generator().manual_seed(0))
+    batch = [torch.from_numpy(a) for a in train.render_pool(4, 128, seed=1)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = train.trainable_model(init, dev)
+        opt = train.OptaxAdamW(model.parameters(), 1e-3, 10)
+        opt.zero_grad()
+        loss, _ = train.detection_loss(model, *(t.to(dev) for t in batch),
+                                       128)
+        loss.backward()
+        grads = {n: p.grad.cpu().clone() for n, p in model.named_parameters()}
+        opt.step()
+        out[dev] = (float(loss.detach()), grads, convert.yolo_params(
+            model.state_dict()))
+    (lg, gg, pg), (lc, gc, _) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 7.9e-7 * abs(lc)
+    for name, g in gc.items():
+        assert float((gg[name] - g).norm() / g.norm()) <= 0.0515, name
+    for a, b in zip(_leaves(pg), _leaves(init)):
+        if isinstance(b, np.ndarray):
+            assert np.isfinite(a).all() and not np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_training_steps_repeat_bit_for_bit_on_the_card(card):
+    """Three semantic/train.train_step updates from yolov8.init_params at
+    input size 128 on 4 rendered images, twice: every parameter equal bit
+    for bit (cuDNN's deterministic algorithms in the step)."""
+    from dynamic_visual_slam_tpu_torch.models import yolov8
+    from dynamic_visual_slam_tpu_torch.semantic import train
+
+    init = yolov8.init_params(torch.Generator().manual_seed(0))
+    batch = [torch.from_numpy(a).cuda()
+             for a in train.render_pool(4, 128, seed=1)]
+    runs = []
+    for _ in range(2):
+        model = train.trainable_model(init, "cuda")
+        opt = train.OptaxAdamW(model.parameters(), 1e-3, 10)
+        for _ in range(3):
+            train.train_step(model, opt, *batch, 128)
+        runs.append({n: p.detach().cpu() for n, p in
+                     model.named_parameters()})
+    for name, p in runs[0].items():
+        assert torch.equal(p, runs[1][name]), name
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 @pytest.fixture(scope="module")
 def fleet_levels(card):
     """The fleet's shape: one extraction of B = 8 streams at 720p, each
