@@ -83,11 +83,33 @@ Phases (one JSON line each, prefixed "phase"):
            images/s, launches of one profiled step; peak memory; the loss
            and gradients on the card against the CPU within
            tests/test_torch_train.py's bounds at 128 and at 256, and the
-           median leaf's within TRAIN_GRAD_MEDIAN_TOL at 256.
+           median leaf's within TRAIN_GRAD_MEDIAN_TOL at 256;
+  tools    cli run --trace --serve 0 --serve-every 5 at 424x240 on 30
+           frames between two runs without them (fps and frame ms of the
+           three), the live view held 2 s (DVS_SERVE_HOLD_S) while a thread
+           fetches /, /stats.json, /map.json and /frame.jpg: trace.json
+           holds 30 "frame" begin/end pairs, /stats.json 30 frames,
+           /frame.jpg a JPEG; B1 and B2 once a frame; keyframes and
+           positions (1e-6 m) equal to the command without --trace and
+           --serve; then cli run --threaded at 720p on 12 frames, which must
+           take the native runtime's NativeQueue (built with g++ on the
+           host); NativeQueue.pop of one 720p frame against the
+           reference's slice copy (ms, host clock);
+  parity   cli parity at 424x240, 120 frames, seed 0, anchored: the
+           port's ATE must be below the CPU oracle's (the reference's
+           claim for its anchored cells); the oracle's ATE beside the one
+           of the cached oracle trajectory (parity_sweep/oracle_cache),
+           printed, not gated; B1 and B2 once a frame; then
+           backend/ba.optimize on the card against oracle/ba_cpu.solve
+           (f64, CPU) at the shipped scale (8 keyframes, 512 landmarks,
+           tests/test_ba.py::make_problem(20, ...) on the port's Lie
+           helpers, priors off): cost within 1 %, camera centres within
+           5 mm after the gauge alignment, rotations within 0.05 deg
+           (tests/test_ba_oracle.py's bounds).
 The kernels' launch counters are reset just before main, fleet_small,
-fleet, snapshot, place_frames, place_batch, dynamic_small (each
-condition), dynamic_frames and train_vocab are driven and read just after;
-B1 and B2 must have launched in each.  The kernels phase also holds B1 and B2 at the fleet's
+fleet, snapshot, tools, parity, place_frames, place_batch, dynamic_small
+(each condition), dynamic_frames and train_vocab are driven and read just
+after; B1 and B2 must have launched in each.  The kernels phase also holds B1 and B2 at the fleet's
 shape (8 frames) and prints how many blurred pixels differ between the
 card and the CPU.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -109,24 +131,31 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
-from dynamic_visual_slam_tpu_torch import cli, convert, kernels
+from dynamic_visual_slam_tpu_torch import cli, convert, kernels, native
+from dynamic_visual_slam_tpu_torch.backend import ba
 from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
                                                   SLAMConfig)
+from dynamic_visual_slam_tpu_torch.core import lie
+from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.models import convert_ultralytics, yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.parallel.mesh import SLAMFleet
+from dynamic_visual_slam_tpu_torch.pipeline import runner
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 from dynamic_visual_slam_tpu_torch.place import bow, pretrain
 from dynamic_visual_slam_tpu_torch.semantic import train
 from dynamic_visual_slam_tpu_torch.semantic.detector import YoloDetector
+from dynamic_visual_slam_tpu_torch.utils import serve
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # Kernel B1's (and B3's) instructions a pixel, by class, counted in
@@ -173,6 +202,20 @@ FLEET_T = 24                   # fleet: scan steps a step_batch call
 FLEET_TIMED = 5                # fleet: timed step_batch calls
 FLEET_SMALL_FRAMES = 14        # fleet_small: tests/test_parallel.py's
 SNAPSHOT_CLI_FRAMES = 6        # snapshot: 720p frames a cli run
+TOOLS_FRAMES = 30              # tools: cli run --trace --serve, 424x240
+TOOLS_SERVE_EVERY = 5
+TOOLS_HOLD_S = 2.0             # DVS_SERVE_HOLD_S while the view is fetched
+THREADED_FRAMES = 12           # tools: cli run --threaded at 720p
+PARITY_FRAMES = 120            # parity: 424x240, seed 0, as the cached cell
+PARITY_CACHE = os.path.join(
+    ROOT, "parity_sweep", "oracle_cache",
+    "oracle_424x240_seed0_f480_59748861b52657b3.npz")
+# tests/test_ba_oracle.py::test_matches_f64_oracle_shipped_scale: the
+# problem (tests/test_ba.py::make_problem's arguments) and its bounds
+BA_SHIPPED = dict(seed=20, w=8, l=512, noise_px=0.2, drop_frac=0.15)
+BA_COST_REL = 0.01
+BA_CENTRE_M = 5e-3
+BA_ROT_DEG = 0.05
 VOCAB_SCENES = 12              # train_vocab: the reference's 12 scenes,
 VOCAB_FRAMES = 8               # 8 frames each (cut from 24)
 # scene_retrieval_accuracy of the JAX package's
@@ -284,7 +327,8 @@ def phase_device():
     emit("device", kind=name, count=torch.cuda.device_count(),
          nvidia_smi=smi_line, torch=torch.__version__,
          cuda=torch.version.cuda,
-         cv2_installed=importlib.util.find_spec("cv2") is not None)
+         cv2_installed=importlib.util.find_spec("cv2") is not None,
+         scipy_installed=importlib.util.find_spec("scipy") is not None)
     return name, smi_line
 
 
@@ -1553,6 +1597,307 @@ def phase_snapshot(device="cuda"):
         fail(f"snapshot: cli --save-state / --resume returned {rc1}, {rc2}")
     check_launches("snapshot", launches)
 
+def _run_cli(argv, out=None):
+    """cli.main in-process with its stdout kept out of this script's."""
+    res = {} if out is None else out
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv, out=res)
+    return rc, res
+
+
+def _fetch_live(views, n_frames: int, got: dict) -> None:
+    """Wait for the recorded LiveView to hold ``n_frames`` frames (the
+    run's last refresh; read in memory, so that no request competes with
+    the timed frames), then fetch its four pages into ``got``."""
+    deadline = time.monotonic() + 600
+    try:
+        while time.monotonic() < deadline and not (
+                views and views[0]._stats.get("frames") == n_frames):
+            time.sleep(0.05)
+        base = f"http://127.0.0.1:{views[0].port}"
+        for path in ("/", "/stats.json", "/map.json", "/frame.jpg"):
+            with urllib.request.urlopen(base + path, timeout=10) as r:
+                got[path] = r.read()
+    except Exception as e:  # noqa: BLE001 - reported by phase_tools
+        got["error"] = repr(e)
+
+
+def phase_tools(device="cuda"):
+    """cli run --trace --serve 0 --serve-every 5 at 424x240 on 30 frames,
+    the view held DVS_SERVE_HOLD_S after the run while a thread fetches
+    its pages, against the same command without --trace and --serve, run
+    before and after it (fps and the frame stage's median of all three);
+    then cli run --threaded at 720p on 12 frames, which must take the
+    native runtime's NativeQueue; NativeQueue.pop of one 720p frame on this
+    host."""
+    out_dir = os.path.join(ROOT, "build", f"tools_{device}")
+    argv = ["run", "--device", device, "--source", "synthetic", "--width",
+            "424", "--height", "240", "--frames", str(TOOLS_FRAMES)]
+    t0 = time.perf_counter()
+    rc0, plain = _run_cli(argv + ["--out-dir", os.path.join(out_dir, "a")])
+    views, got = [], {}
+
+    class Recorded(serve.LiveView):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            views.append(self)
+
+    fetcher = threading.Thread(target=_fetch_live,
+                               args=(views, TOOLS_FRAMES, got), daemon=True)
+    saved = serve.LiveView, os.environ.get("DVS_SERVE_HOLD_S")
+    serve.LiveView = Recorded
+    os.environ["DVS_SERVE_HOLD_S"] = str(TOOLS_HOLD_S)
+    kernels.reset_launch_counts()
+    fetcher.start()
+    try:
+        rc1, tooled = _run_cli(argv + [
+            "--out-dir", os.path.join(out_dir, "b"), "--trace", "--serve",
+            "0", "--serve-every", str(TOOLS_SERVE_EVERY)])
+    finally:
+        serve.LiveView = saved[0]
+        if saved[1] is None:
+            os.environ.pop("DVS_SERVE_HOLD_S")
+        else:
+            os.environ["DVS_SERVE_HOLD_S"] = saved[1]
+    sync(device)
+    launches = dict(kernels.launches)
+    fetcher.join(timeout=60)
+    rc2, plain2 = _run_cli(argv + ["--out-dir", os.path.join(out_dir, "c")])
+    seconds = time.perf_counter() - t0
+    if (rc0, rc1, rc2) != (0, 0, 0):
+        fail(f"tools: cli run returned {rc0}, {rc1}, {rc2}")
+    events = json.load(open(os.path.join(out_dir, "b", "trace.json")))[
+        "traceEvents"]
+    pairs = sum(e["ph"] == "B" and e["name"] == "frame" for e in events)
+    ends = sum(e["ph"] == "E" and e["name"] == "frame" for e in events)
+    live_stats = json.loads(got.get("/stats.json", b"{}"))
+    jpeg = got.get("/frame.jpg", b"")
+    _, _, t_a = plain["system"].frontend_trajectory()
+    _, _, t_b = tooled["system"].frontend_trajectory()
+    pos_err = float(np.abs(t_a - t_b).max()) if t_a.shape == t_b.shape \
+        else math.inf
+    # the threaded runner at 720p: which queue it takes
+    queues = []
+    make_queue = runner._make_queue
+
+    def recorded_queue(*a, **k):
+        queues.append(make_queue(*a, **k))
+        return queues[-1]
+
+    runner._make_queue = recorded_queue
+    t1 = time.perf_counter()
+    try:
+        rc3, threaded = _run_cli([
+            "run", "--device", device, "--source", "synthetic", "--width",
+            "1280", "--height", "720", "--frames", str(THREADED_FRAMES),
+            "--threaded", "--out-dir", os.path.join(out_dir, "threaded")])
+    finally:
+        runner._make_queue = make_queue
+    threaded_s = time.perf_counter() - t1
+    n = 1280 * 720 * 3
+    q = native.NativeQueue(depth=2, max_item=n + 64)
+    payload = np.random.default_rng(0).integers(0, 256, n,
+                                                dtype=np.uint8).tobytes()
+    pop_ms, slice_ms = [], []
+    for _ in range(20):
+        q.push(0.0, payload)
+        ta = time.perf_counter()
+        item = q.pop(1.0)
+        pop_ms.append((time.perf_counter() - ta) * 1e3)
+        ta = time.perf_counter()
+        bytes(q._buf[:n])          # the reference's copy, for comparison
+        slice_ms.append((time.perf_counter() - ta) * 1e3)
+    pop_equal = item[1] == payload
+    st = tooled["stats"]
+    runs = (plain, tooled, plain2)
+    emit("tools", frames=TOOLS_FRAMES, seconds=seconds, rc=[rc0, rc1, rc2],
+         trace_begin=pairs, trace_end=ends, live_error=got.get("error"),
+         live_frames=live_stats.get("frames"), live_page_bytes={
+             k: len(v) for k, v in got.items() if k != "error"},
+         jpeg_soi=jpeg[:3] == b"\xff\xd8\xff", launches=launches,
+         keyframes=[plain["stats"]["keyframes"], st["keyframes"]],
+         max_pos_diff_m=pos_err,
+         fps_plain_tools_plain=[r["stats"]["fps"] for r in runs],
+         frame_median_ms_plain_tools_plain=[
+             r["stats"]["stages"]["frame"]["median_ms"] for r in runs],
+         native_available=native.available(),
+         threaded_queues=[type(x).__name__ for x in queues],
+         threaded_rc=rc3, threaded_seconds=threaded_s,
+         frames_processed=threaded.get("stats", {}).get("frames"),
+         queue_dropped=threaded.get("stats", {}).get("queue_dropped"),
+         frames_in=threaded.get("stats", {}).get("frames_in"),
+         pop_720p_ms=statistics.median(pop_ms),
+         slice_copy_720p_ms=statistics.median(slice_ms),
+         pop_bytes_equal=pop_equal)
+    if pairs != TOOLS_FRAMES or ends != TOOLS_FRAMES:
+        fail(f"tools: trace.json holds {pairs} / {ends} frame begin / end "
+             f"events for {TOOLS_FRAMES} frames")
+    if live_stats.get("frames") != TOOLS_FRAMES:
+        fail(f"tools: /stats.json reports {live_stats.get('frames')} frames "
+             f"({got.get('error')})")
+    if jpeg[:3] != b"\xff\xd8\xff" or not got.get("/") \
+            or not got.get("/map.json"):
+        fail(f"tools: live view pages {sorted(got)} (JPEG SOI "
+             f"{jpeg[:3]!r}, {got.get('error')})")
+    if st["keyframes"] != plain["stats"]["keyframes"] \
+            or not pos_err <= 1e-6:
+        fail(f"tools: --trace --serve changed the run: keyframes "
+             f"{st['keyframes']} against {plain['stats']['keyframes']}, "
+             f"positions {pos_err} m")
+    if device == "cuda" and any(launches.get(name, 0) != TOOLS_FRAMES
+                                for name in kernels.SOURCES):
+        fail(f"tools: launches {launches} for {TOOLS_FRAMES} frames")
+    if not native.available():
+        fail(f"tools: native runtime not built: {native.error()}")
+    if rc3 != 0 or not queues or not all(
+            isinstance(x, native.NativeQueue) for x in queues):
+        fail(f"tools: --threaded returned {rc3} and took "
+             f"{[type(x).__name__ for x in queues]}")
+    if not pop_equal:
+        fail("tools: NativeQueue.pop changed a 720p payload")
+    return launches
+
+
+def ba_window_problem(seed=0, w=8, l=200, noise_px=0.3, pose_pert=0.02,
+                      point_pert=0.05, outlier_frac=0.0, drop_frac=0.2):
+    """tests/test_ba.py::make_problem on the port's Lie helpers (float32,
+    CPU): the same draws in the same order.  → (numpy dict of the BAProblem
+    fields, Intrinsics of the tum_fr3 preset)."""
+    k = Intrinsics.from_config(SLAMConfig.preset("tum_fr3").camera)
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def so3_exp(v):
+        return lie.so3_exp(torch.from_numpy(np.asarray(v, f32))).numpy()
+
+    xyz_gt = rng.uniform([-2, -1.5, 2.5], [2, 1.5, 6], (l, 3)).astype(f32)
+    qs, ts, uvs, valids = [], [], [], []
+    for _ in range(w):
+        q = so3_exp(rng.normal(size=3) * 0.05)
+        t = (rng.normal(size=3) * 0.2).astype(f32)
+        xc = (xyz_gt - t) @ lie.quat_to_mat(torch.from_numpy(q)).numpy()
+        uv = np.stack([f32(k.fx) * xc[:, 0] / xc[:, 2] + f32(k.cx),
+                       f32(k.fy) * xc[:, 1] / xc[:, 2] + f32(k.cy)], -1)
+        uv += rng.normal(size=uv.shape) * noise_px
+        valid = (xc[:, 2] > 0.3) & (rng.random(l) > drop_frac)
+        if outlier_frac > 0:
+            out = rng.random(l) < outlier_frac
+            uv[out] += rng.uniform(5, 25, size=(out.sum(), 2)) * \
+                rng.choice([-1, 1], size=(out.sum(), 2))
+        qs.append(q)
+        ts.append(t)
+        uvs.append(uv)
+        valids.append(valid)
+    q_gt, t_gt = np.stack(qs), np.stack(ts)
+    q0, t0 = q_gt.copy(), t_gt.copy()
+    for i in range(1, w):
+        dq = so3_exp(rng.normal(size=3).astype(f32) * pose_pert)
+        q0[i] = lie.quat_mul(torch.from_numpy(dq),
+                             torch.from_numpy(q_gt[i])).numpy()
+        t0[i] = t_gt[i] + rng.normal(size=3).astype(f32) * pose_pert * 5
+    xyz0 = xyz_gt + rng.normal(size=(l, 3)).astype(f32) * point_pert
+    return dict(q_wc=q0, t_wc=t0, kf_active=np.ones(w, bool), xyz=xyz0,
+                lm_active=np.ones(l, bool),
+                uv=np.stack(uvs, axis=1).astype(f32),
+                valid=np.stack(valids, axis=1)), k
+
+
+def gauge_aligned_diff(res, orc):
+    """tests/test_ba_oracle.py's comparison: map the solver's cameras into
+    the oracle's gauge (one scale about the fixed first camera centre),
+    then camera centre distances (m) and rotation angles (degrees)."""
+    c0 = orc.t_wc[0]
+    x_est = np.asarray(res.xyz.cpu(), np.float64) - c0
+    x_orc = orc.xyz - c0
+    s = float(np.sum(x_est * x_orc) / max(np.sum(x_est * x_est), 1e-30))
+    t_al = s * (np.asarray(res.t_wc.cpu(), np.float64) - c0) + c0
+    t_diff = np.linalg.norm(t_al - orc.t_wc, axis=1)
+    dots = np.abs(np.sum(np.asarray(res.q_wc.cpu(), np.float64) * orc.q_wc,
+                         axis=1))
+    return t_diff, 2 * np.degrees(np.arccos(np.clip(dots, -1, 1)))
+
+
+def phase_parity(device="cuda"):
+    """cli parity at 424x240 on 120 frames, seed 0, anchored (the default):
+    the port's ATE must be below the oracle's, the reference's claim for
+    its anchored cells (parity_sweep/sweep.json); whether the oracle's ATE
+    equals the cached oracle trajectory's is printed, not gated.  Then
+    backend/ba.optimize on the card against oracle/ba_cpu.solve at the
+    shipped scale, with test_ba_oracle.py's bounds."""
+    try:
+        from dynamic_visual_slam_tpu_torch.oracle import ba_cpu
+    except ImportError as e:
+        fail(f"parity: the oracle needs scipy: {e}")
+    if importlib.util.find_spec("cv2") is None:
+        fail("parity: the oracle needs OpenCV (cv2)")
+    import cv2
+    import scipy
+    out_dir = os.path.join(ROOT, "build", f"parity_{device}")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, res = _run_cli(["parity", "--device", device, "--frames",
+                        str(PARITY_FRAMES), "--width", "424", "--height",
+                        "240", "--seed", "0", "--out-dir", out_dir])
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rc != 0:
+        fail(f"parity: cli parity returned {rc}")
+    run = res["report"]["runs"][0]
+    gt_t = np.stack([t for _, t in synthetic.orbit_trajectory(
+        PARITY_FRAMES, seed=1)])
+    cached = np.load(PARITY_CACHE)
+    cached_ate = round(float(trajectory.ate_rmse(
+        cached["t"][:PARITY_FRAMES], gt_t)), 5)
+    # the window BA at the shipped scale, priors off
+    problem, k = ba_window_problem(**BA_SHIPPED)
+    cfg_ba = dataclasses.replace(
+        SLAMConfig.preset("tum_fr3").ba, pose_prior_sigma_rot=0.0,
+        pose_prior_sigma_t=0.0, point_prior_sigma=0.0, max_iterations=40)
+    t1 = time.perf_counter()
+    got = ba.optimize(k, convert.ba_problem(problem, device), cfg_ba)
+    sync(device)
+    ba_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    orc = ba_cpu.solve(problem["q_wc"], problem["t_wc"], problem["xyz"],
+                       problem["uv"], problem["valid"], k.fx, k.fy, k.cx,
+                       k.cy, sigma=cfg_ba.sigma_px,
+                       huber_delta=cfg_ba.huber_delta)
+    oracle_s = time.perf_counter() - t1
+    cost_rel = abs(float(got.final_cost) - orc.cost) / orc.cost
+    t_diff, ang = gauge_aligned_diff(got, orc)
+    emit("parity", frames=PARITY_FRAMES, seconds=seconds,
+         cv2=cv2.__version__, scipy=scipy.__version__,
+         tpu_ate_m=run["tpu_ate_m"], oracle_ate_m=run["oracle_ate_m"],
+         ate_ratio=run["ate_ratio"],
+         tpu_vs_oracle_ate_m=run["tpu_vs_oracle_ate_m"],
+         tpu_keyframes=run["tpu_keyframes"],
+         oracle_keyframes=run["oracle_keyframes"],
+         oracle_ba_rounds=run["oracle_ba_rounds"],
+         cached_oracle_ate_m=cached_ate,
+         oracle_equals_cache=cached_ate == run["oracle_ate_m"],
+         launches=launches, ba_problem=BA_SHIPPED,
+         ba_final_cost=float(got.final_cost),
+         ba_initial_cost=float(got.initial_cost),
+         ba_iterations=int(got.iterations), oracle_cost=orc.cost,
+         oracle_irls=orc.n_irls, ba_cost_rel=cost_rel,
+         ba_max_centre_m=float(t_diff.max()),
+         ba_max_rot_deg=float(ang.max()), ba_seconds=ba_s,
+         oracle_seconds=oracle_s)
+    if not run["tpu_ate_m"] < run["oracle_ate_m"]:
+        fail(f"parity: ATE {run['tpu_ate_m']} m, not below the oracle's "
+             f"{run['oracle_ate_m']} m")
+    if device == "cuda" and any(launches.get(name, 0) != PARITY_FRAMES
+                                for name in kernels.SOURCES):
+        fail(f"parity: launches {launches} for {PARITY_FRAMES} frames")
+    if not cost_rel < BA_COST_REL:
+        fail(f"parity: BA cost {float(got.final_cost)} against the "
+             f"oracle's {orc.cost}")
+    if not t_diff.max() < BA_CENTRE_M or not ang.max() < BA_ROT_DEG:
+        fail(f"parity: BA cameras {t_diff.max()} m, {ang.max()} deg from "
+             f"the oracle's")
+    return launches
+
 
 def main() -> None:
     name, smi_line = phase_device()
@@ -1566,6 +1911,8 @@ def main() -> None:
     fleet_launches = phase_fleet(frames, cfg)
     phase_place_small()
     phase_snapshot()
+    tools_launches = phase_tools()
+    parity_launches = phase_parity()
     phase_place_frames(cfg)
     phase_place_batch(frames, cfg)
     phase_yolo()
@@ -1579,8 +1926,11 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
         r["fleet_launches"] = fleet_launches.get(r["name"], 0)
         r["train_vocab_launches"] = vocab_launches.get(r["name"], 0)
+        r["tools_launches"] = tools_launches.get(r["name"], 0)
+        r["parity_launches"] = parity_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
-            "fleet_launches", "train_vocab_launches", "max_abs_err", "ms",
+            "fleet_launches", "train_vocab_launches", "tools_launches",
+            "parity_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     emit("done", seconds=time.perf_counter() - T_START)

@@ -1,6 +1,6 @@
 """Command-line entry point of the PyTorch port: the reference package's
-``run``, ``info``, ``train-detector`` and ``train-vocab`` (``parity`` and
-``bench`` are not ported yet).
+``run``, ``parity``, ``info``, ``train-detector`` and ``train-vocab``
+(``bench`` waits for the port's own benchmark).
 
     python -m dynamic_visual_slam_tpu_torch.cli run --source synthetic \
         --frames 120
@@ -8,6 +8,8 @@
         --detector yolov8 --weights assets/yolov8n_synth.npz
     python -m dynamic_visual_slam_tpu_torch.cli run --source /data/tum_fr3 \
         --preset tum_fr3 --detector none
+    python -m dynamic_visual_slam_tpu_torch.cli run --trace --serve 8080
+    python -m dynamic_visual_slam_tpu_torch.cli parity --frames 240 --seeds 5
 
     python -m dynamic_visual_slam_tpu_torch.cli info --preset tum_fr3
     python -m dynamic_visual_slam_tpu_torch.cli train-detector --steps 1500 \
@@ -15,7 +17,7 @@
     python -m dynamic_visual_slam_tpu_torch.cli train-vocab \
         --out orbvoc_synth.npz
 
-``run``, ``train-detector`` and ``train-vocab`` run on the card
+``run``, ``parity``, ``train-detector`` and ``train-vocab`` run on the card
 (``--device cuda``, the default; they raise without one) unless ``--device
 cpu`` is given.  ``train-detector`` writes the reference's YOLOv8 npz with
 the input size embedded (its training images render in up to 8 worker
@@ -23,10 +25,20 @@ processes), ``train-vocab`` its vocabulary npz; both packages read both.
 ``run`` writes (``--out-dir``) frontend and
 keyframe trajectories (TUM format), landmark and trajectory PLYs, and the
 stats JSON (the system's counters, ``fps``, ``wall_s``, ``landmarks``,
-per-stage timings, ``ate_rmse_m`` on synthetic sources).  ``--save-state``
+per-stage timings, ``ate_rmse_m`` on synthetic sources), and with
+``--trace`` a chrome trace of the per-frame ``process`` calls
+(``trace.json``, from the native runtime, which ``g++`` builds at first use;
+without it the command exits with code 2).  ``--serve [PORT]`` serves a
+live view on 127.0.0.1 while it runs (``utils/serve.LiveView``), refreshed
+every ``--serve-every`` frames; ``DVS_SERVE_HOLD_S`` keeps it up that many
+seconds after the run.  ``--save-state``
 writes a checkpoint of the final state and ``--resume`` starts from one
 (a missing checkpoint or another config exits with code 2).  ``main(argv,
 out=...)`` also hands an in-process caller the run's system.
+``parity`` runs the port's pipeline and the CPU oracle (OpenCV ORB and PnP,
+f64 scipy BA) on the same frames and writes ``parity.json``; its ``tpu_``
+keys, kept from the reference's reports (``parity_sweep/``), name the
+pipeline under test, here the port's on ``--device``.
 """
 
 from __future__ import annotations
@@ -56,10 +68,8 @@ def _build_config(args) -> SLAMConfig:
 
 
 def cmd_run(args, out: Optional[dict] = None) -> int:
-    from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
-    from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
     from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
-    from dynamic_visual_slam_tpu_torch.utils import profiling, viz
+    from dynamic_visual_slam_tpu_torch.utils import profiling
 
     cfg = _build_config(args)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -109,6 +119,33 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
               f"({int(slam.map_state.keyframes.count)} keyframes)",
               file=sys.stderr)
     timer = profiling.StageTimer()
+    tracer = None
+    if args.trace:
+        try:
+            tracer = profiling.make_tracer()
+        except RuntimeError as e:
+            print(f"error: --trace: {e}", file=sys.stderr)
+            return 2
+
+    live = None
+    if args.serve is not None:
+        from dynamic_visual_slam_tpu_torch.utils.serve import LiveView
+        live = LiveView(port=args.serve)
+        print(f"live view at http://127.0.0.1:{live.port}/",
+              file=sys.stderr)
+    try:
+        return _run_frames(args, cfg, slam, detector, timer, tracer, live,
+                           out)
+    finally:
+        if live is not None:
+            live.close()
+
+
+def _run_frames(args, cfg, slam, detector, timer, tracer, live,
+                out: Optional[dict]) -> int:
+    from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
+    from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
+    from dynamic_visual_slam_tpu_torch.utils import viz
 
     if args.source == "synthetic":
         frames = synthetic.generate_sequence(cfg.camera, args.frames,
@@ -153,6 +190,33 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
             return detector(rgb, ts)
         return detector(rgb)
 
+    def _live_update(gray=None, final=False):
+        """Publish a live-view snapshot (annotated frame, stat tiles,
+        top-down map): the one place the live view reads the card.  Each
+        refresh reads the current keypoint block (``--serve-every`` sets
+        the cadence); the landmark cloud, a bigger read, refreshes at 1/6
+        of that cadence."""
+        if live is None:
+            return
+        uv = None
+        if gray is not None:
+            kp = slam.tracker_state.prev
+            uv = kp.uv.cpu().numpy()[kp.mask.cpu().numpy()]
+        st = dict(slam.stats)
+        if slam.trajectory:
+            fr = slam.trajectory[-1]
+            st.update(x=round(float(fr.t_wc[0]), 4),
+                      y=round(float(fr.t_wc[1]), 4),
+                      z=round(float(fr.t_wc[2]), 4),
+                      tracking_ok=bool(fr.tracking_ok))
+        st["fps"] = round(n / max(time.perf_counter() - t_start, 1e-9), 2)
+        traj = np.stack([f.t_wc for f in slam.trajectory]) \
+            if slam.trajectory else None
+        lms = None
+        if final or (n // max(1, args.serve_every)) % 6 == 0:
+            lms = slam.landmarks_world()["xyz"]
+        live.update(gray, uv, st, traj, lms)
+
     if args.batch and not args.threaded:
         # offline throughput mode: frames through process_batch in batches
         # of B; a detector runs per frame and its Detections are stacked
@@ -169,6 +233,7 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
             if len(buf) == b:
                 dets = Detections(*(torch.stack(xs) for xs in zip(
                     *det_buf))) if det_buf else None
+                last_gray = buf[-1][0]
                 with timer.stage("batch"):
                     slam.process_batch(
                         np.stack([x[0] for x in buf]),
@@ -176,6 +241,7 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
                         np.asarray([x[2] for x in buf]),
                         detections=dets)
                 buf, det_buf = [], []
+                _live_update(last_gray)
         for i, (gray, depth, ts) in enumerate(buf):  # tail < one batch
             det = det_buf[i] if det_buf else None
             slam.process(gray, depth, ts, detections=det)
@@ -207,8 +273,12 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
             if detector is not None:
                 with timer.stage("detector"):
                     det = _detect(np.asarray(gray), float(ts))
+            if tracer:
+                tracer.begin("frame")
             with timer.stage("frame"):
                 slam.process(gray, depth, ts, detections=det)
+            if tracer:
+                tracer.end("frame")
             if debug_every and n % debug_every == 0:
                 # annotated feature image, the reference's per-frame
                 # /feature_detector/features_image (frontend.cpp:1229-1232)
@@ -223,6 +293,8 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
             if t_gt is not None:
                 gt_map[float(ts)] = t_gt
             n += 1
+            if live is not None and n % max(1, args.serve_every) == 0:
+                _live_update(np.asarray(gray))
         slam.finalize()
         wall = time.perf_counter() - t_start
 
@@ -238,6 +310,8 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
                          lms["xyz"], lms["n_obs"])
     viz.trajectory_to_ply(os.path.join(args.out_dir, "trajectory.ply"),
                           ts_arr)
+    if tracer:
+        tracer.dump_chrome_trace(os.path.join(args.out_dir, "trace.json"))
     if args.save_state:
         # np.savez appends .npz when absent; normalise so the printed path
         # and a later --resume both name the file written
@@ -277,6 +351,107 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
     print(json.dumps(stats, indent=2))
     if out is not None:
         out.update(system=slam, stats=stats, gt_positions=gt_map)
+    if live is not None:
+        _live_update(final=True)
+        hold = float(os.environ.get("DVS_SERVE_HOLD_S", "0"))
+        if hold > 0:          # keep the console up after the run
+            print(f"holding live view {hold:.0f}s "
+                  f"(http://127.0.0.1:{live.port}/)", file=sys.stderr)
+            time.sleep(hold)
+    return 0
+
+
+def _parity_once(cfg, frames, gt_t, source_name, device) -> dict:
+    """One run of the port's pipeline and one of the CPU oracle on a shared
+    frame list → report dict (the reference's keys; ``tpu_`` names the
+    pipeline under test)."""
+    from dynamic_visual_slam_tpu_torch.io import trajectory
+    from dynamic_visual_slam_tpu_torch.oracle.pipeline_cpu import OracleSLAM
+    from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
+
+    slam = SLAMSystem(cfg, enable_place_recognition=False, device=device)
+    for gray, depth, _, _, ts in frames:
+        slam.process(gray, depth, ts)
+    slam.finalize()
+    _, _, tpu_t = slam.frontend_trajectory()
+
+    orc = OracleSLAM(cfg, run_ba=True)
+    for gray, depth, _, _, ts in frames:
+        orc.process(gray, depth, ts)
+    _, _, orc_t = orc.frontend_trajectory()
+
+    report = dict(
+        source=source_name, frames=len(frames),
+        tpu_keyframes=slam.stats["keyframes"],
+        oracle_keyframes=len(orc.keyframes),
+        oracle_ba_rounds=orc.ba_rounds,
+        tpu_vs_oracle_ate_m=round(
+            float(trajectory.ate_rmse(tpu_t, orc_t)), 5))
+    if gt_t is not None:
+        tpu_ate = float(trajectory.ate_rmse(tpu_t, gt_t))
+        orc_ate = float(trajectory.ate_rmse(orc_t, gt_t))
+        report.update(
+            tpu_ate_m=round(tpu_ate, 5), oracle_ate_m=round(orc_ate, 5),
+            ate_ratio=round(tpu_ate / max(orc_ate, 1e-9), 4))
+    return report
+
+
+def cmd_parity(args, out: Optional[dict] = None) -> int:
+    """Trajectory parity: run the port's pipeline (on ``--device``) and the
+    CPU oracle pipeline (cv2 ORB + BFMatcher + solvePnPRansac + f64 scipy
+    BA, the reference algorithm on the reference's own libraries) on the
+    same frames; report the ATE of each against ground truth and against
+    each other.  With --seeds N, run N seeds and report the distribution of
+    the ATE ratio (mean, median, worst).  OpenCV and scipy must be
+    installed: their absence raises."""
+    import cv2  # noqa: F401 - the oracle's; fail before any frame runs
+
+    from dynamic_visual_slam_tpu_torch.io import synthetic, tum
+    from dynamic_visual_slam_tpu_torch.oracle import ba_cpu  # noqa: F401
+
+    cfg = _build_config(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    if args.source != "synthetic":
+        if not os.path.exists(os.path.join(args.source, "rgb.txt")):
+            print(f"error: '{args.source}' is not a TUM RGB-D directory",
+                  file=sys.stderr)
+            return 2
+        ds = tum.TUMDataset(args.source)
+        frames = [(g, d, None, None, ts)
+                  for g, d, ts in ds.frames(limit=args.frames or None)]
+        stamps = np.asarray([f[4] for f in frames])
+        report = _parity_once(cfg, frames, ds.gt_positions_at(stamps),
+                              args.source, args.device)
+    else:
+        runs = []
+        for seed in range(args.seed, args.seed + max(args.seeds, 1)):
+            frames = list(synthetic.generate_sequence(
+                cfg.camera, args.frames, seed=seed, depth_noise=0.004))
+            gt_t = np.stack([f[3] for f in frames])
+            rep = _parity_once(cfg, frames, gt_t, f"synthetic(seed={seed})",
+                               args.device)
+            rep["seed"] = seed
+            runs.append(rep)
+            print(json.dumps(rep), flush=True)
+        report = dict(runs=runs)
+        ratios = [r["ate_ratio"] for r in runs]
+        report["summary"] = dict(
+            n=len(ratios),
+            frames=args.frames,
+            resolution=f"{cfg.camera.width}x{cfg.camera.height}",
+            ate_ratio_mean=round(float(np.mean(ratios)), 4),
+            ate_ratio_median=round(float(np.median(ratios)), 4),
+            ate_ratio_worst=round(float(np.max(ratios)), 4),
+            tpu_ate_mean_m=round(float(np.mean(
+                [r["tpu_ate_m"] for r in runs])), 5),
+            oracle_ate_mean_m=round(float(np.mean(
+                [r["oracle_ate_m"] for r in runs])), 5))
+    with open(os.path.join(args.out_dir, "parity.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report.get("summary", report), indent=2))
+    if out is not None:
+        out.update(report=report)
     return 0
 
 
@@ -365,6 +540,11 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
                     help="YOLOv8 weights: the reference's .npz or an "
                          "ultralytics .pt (none: random init)")
     pr.add_argument("--out-dir", default="slam_out")
+    pr.add_argument("--trace", action="store_true",
+                    help="write a chrome trace of the per-frame process "
+                         "calls to OUT_DIR/trace.json (native runtime, "
+                         "built with g++ at first use; exit code 2 when it "
+                         "cannot be built)")
     pr.add_argument("--batch", type=int, default=0, metavar="B",
                     help="offline throughput mode: frames through "
                          "process_batch in batches of B")
@@ -382,6 +562,16 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
                          "selects the age-interpolated correction")
     pr.add_argument("--no-reloc", action="store_true",
                     help="disable BoW relocalization after tracking loss")
+    pr.add_argument("--serve", type=int, nargs="?", const=8080, default=None,
+                    metavar="PORT",
+                    help="serve a live operator view (annotated frame, "
+                         "stats, top-down map) at http://127.0.0.1:PORT "
+                         "while running (default port 8080; 0 picks a free "
+                         "one)")
+    pr.add_argument("--serve-every", type=int, default=5, metavar="N",
+                    help="refresh the live view every N frames (each "
+                         "refresh reads the current keypoint block off the "
+                         "card)")
     pr.add_argument("--anchor", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="keyframe-anchored tracking (on by default, "
@@ -400,6 +590,29 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
     pr.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     pr.set_defaults(fn=cmd_run)
+
+    pp = sub.add_parser(
+        "parity", help="the port's pipeline against the CPU oracle "
+                       "(trajectory parity; the report's tpu_ keys name the "
+                       "pipeline under test)")
+    pp.add_argument("--source", default="synthetic",
+                    help="'synthetic' or a TUM RGB-D directory")
+    pp.add_argument("--preset", default=None)
+    pp.add_argument("--frames", type=int, default=240)
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--seeds", type=int, default=1, metavar="N",
+                    help="run N consecutive seeds (synthetic only) and "
+                         "report the ATE-ratio distribution")
+    pp.add_argument("--width", type=int, default=424)
+    pp.add_argument("--height", type=int, default=240)
+    pp.add_argument("--anchor", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="keyframe-anchored tracking in the pipeline under "
+                         "test (default: the config's, on)")
+    pp.add_argument("--out-dir", default="parity_out")
+    pp.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    pp.set_defaults(fn=cmd_parity)
 
     pt = sub.add_parser("train-detector",
                         help="train YOLOv8n on the synthetic dynamic world "

@@ -127,6 +127,31 @@ def se3_compose(qa, ta, qb, tb):
     return quat_normalize(quat_mul(qa, qb)), quat_rotate(qa, tb) + ta
 
 
+def se3_apply(q, t, x):
+    return quat_rotate(q, x) + t
+
+
+# Optical↔ROS basis change (frontend.cpp:393-397, backend.cpp:1441-1445).
+# C maps camera-optical axes (z fwd, x right, y down) to ROS body axes
+# (x fwd, y left, z up):  T_ros = C · R_optical · Cᵀ.
+OPTICAL_TO_ROS = ((0.0, 0.0, 1.0),
+                  (-1.0, 0.0, 0.0),
+                  (0.0, -1.0, 0.0))
+
+
+def _optical_to_ros(like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(OPTICAL_TO_ROS, dtype=like.dtype, device=like.device)
+
+
+def optical_to_ros_rotation(r_opt: torch.Tensor) -> torch.Tensor:
+    c = _optical_to_ros(r_opt)
+    return c @ r_opt @ c.T
+
+
+def optical_to_ros_point(p_opt: torch.Tensor) -> torch.Tensor:
+    return p_opt @ _optical_to_ros(p_opt).T
+
+
 def det3x3(m: torch.Tensor) -> torch.Tensor:
     """Closed-form determinant of (...,3,3) — no LU, no host sync."""
     return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])

@@ -86,3 +86,10 @@ def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray) -> float:
     r, t = umeyama_alignment(est_t, gt_t)
     est_t = est_t @ r.T + t
     return float(np.sqrt(np.mean(np.sum((est_t - gt_t) ** 2, axis=1))))
+
+
+def rpe_rmse(est_t: np.ndarray, gt_t: np.ndarray, delta: int = 1) -> float:
+    """Relative pose error (translation) RMSE over `delta`-frame intervals."""
+    de = est_t[delta:] - est_t[:-delta]
+    dg = gt_t[delta:] - gt_t[:-delta]
+    return float(np.sqrt(np.mean(np.sum((de - dg) ** 2, axis=1))))

@@ -82,6 +82,11 @@ class Conv(nn.Module):
         return (y * torch.sigmoid(y)).to(BF16)
 
 
+def yolov8n_spec() -> Dict[str, Any]:
+    """Channel/depth layout for the 'n' scale."""
+    return dict(channels=list(CHANNELS), n1=DEPTHS[0], n2=DEPTHS[1])
+
+
 def init_params(generator: torch.Generator, num_classes: int = NUM_CLASSES
                 ) -> Dict[str, Any]:
     """Random parameter tree in the reference's layout (BN folded, HWIO

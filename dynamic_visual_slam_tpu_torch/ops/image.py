@@ -164,3 +164,9 @@ def cell_broadcast(cells: torch.Tensor, cell: int, h: int, w: int) -> torch.Tens
     """Inverse of cell_reduce_max's shape: repeat each cell value over its tile."""
     up = cells.repeat_interleave(cell, dim=-2).repeat_interleave(cell, dim=-1)
     return up[..., :h, :w]
+
+
+def to_gray(rgb: torch.Tensor) -> torch.Tensor:
+    """(H,W,3) uint8/float RGB → (H,W) float32 gray, BT.601 (cv::cvtColor)."""
+    rgb = rgb.to(torch.float32)
+    return rgb[..., 0] * 0.299 + rgb[..., 1] * 0.587 + rgb[..., 2] * 0.114

@@ -9,9 +9,9 @@ the backend, paired by message_filters::ApproximateTime
 (not just a tested library, VERDICT r1 weak #4):
 
   IO thread        : decodes frames, serializes them through a bounded
-                     drop-oldest byte queue (the reference's Python
-                     queue; its C++ runtime is not ported) — the "DDS
-                     hop";
+                     drop-oldest byte queue (the native runtime's
+                     NativeQueue when it builds, else a Python queue) —
+                     the "DDS hop";
   detector thread  : optional; consumes the same frames, produces
                      Detections into the ApproximateTime synchronizer's B
                      stream (B is optional — the reference's stall-
@@ -41,7 +41,7 @@ from dynamic_visual_slam_tpu_torch.pipeline.sync import ApproximateTimeSync
 class _PyQueue:
     """Thread-safe drop-oldest bounded queue."""
 
-    def __init__(self, depth: int = 30, max_item: int = 0):
+    def __init__(self, depth: int = 30):
         from collections import deque
         self._q = deque(maxlen=depth)
         self._cv = threading.Condition()
@@ -74,7 +74,10 @@ class _PyQueue:
 
 
 def _make_queue(depth: int, max_item: int):
-    return _PyQueue(depth=depth, max_item=max_item)
+    from dynamic_visual_slam_tpu_torch import native
+    if native.available():
+        return native.NativeQueue(depth=depth, max_item=max_item)
+    return _PyQueue(depth=depth)
 
 
 def _pack_frame(gray: np.ndarray, depth_m: np.ndarray) -> bytes:

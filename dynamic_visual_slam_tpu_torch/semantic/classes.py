@@ -38,6 +38,10 @@ def category_id(name: str) -> int:
     return COCO_CLASSES.index(name) + 1
 
 
+def category_name(cid: int) -> str:
+    return UNLABELED_NAME if cid == 0 else COCO_CLASSES[cid - 1]
+
+
 def num_categories() -> int:
     return len(COCO_CLASSES) + 1
 

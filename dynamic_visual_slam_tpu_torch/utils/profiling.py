@@ -1,15 +1,26 @@
-"""Per-stage wall-clock timing: the reference package's
-``utils/profiling.StageTimer``, which also keeps every sample after the
-first and reports their median and 90th percentile."""
+"""Profiling and tracing, as the reference package's ``utils/profiling``:
+
+- StageTimer: per-stage wall-clock EMAs, which here also keeps every
+  sample after the first and reports their median and 90th percentile;
+- make_tracer(): the native chrome-trace ring buffer (native.NativeTracer);
+- device_profile(): ``torch.profiler`` where the reference has
+  ``jax.profiler``.
+
+Unlike the reference's, ``make_tracer`` raises when the native runtime
+cannot be built, with the compiler's message: ``cli run --trace`` then
+fails (exit code 2) rather than run without writing a trace.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 class StageTimer:
@@ -52,3 +63,30 @@ class StageTimer:
                     self.samples_ms[k], 90)), 3)
             out[k] = entry
         return out
+
+
+@contextlib.contextmanager
+def device_profile(logdir: Optional[str]):
+    """``torch.profiler`` trace (TensorBoard's format, a chrome trace JSON
+    under ``logdir``) when logdir is given: the card's activity when CUDA is
+    available, the host's otherwise.  Yields the profiler (None without
+    logdir)."""
+    if not logdir:
+        yield None
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                logdir)) as prof:
+        yield prof
+
+
+def make_tracer(capacity: int = 65536):
+    """Native chrome-trace recorder; raises RuntimeError, with the
+    compiler's message, when the native runtime cannot be built."""
+    from dynamic_visual_slam_tpu_torch import native
+    return native.NativeTracer(capacity)

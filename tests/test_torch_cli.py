@@ -1,6 +1,6 @@
-"""The port's command line, ``cli run``, ``info``, ``train-detector`` and
-``train-vocab``, on the CPU, and the host modules its outputs go through,
-against the JAX package.
+"""The port's command line, ``cli run``, ``parity``, ``info``,
+``train-detector`` and ``train-vocab``, on the CPU, and the host modules
+its outputs go through, against the JAX package.
 
 - ``cli run --source dynamic --detector gt`` at 160x120 writes the
   trajectory that SLAMSystem gives on the same frames and detections, frame
@@ -27,6 +27,16 @@ against the JAX package.
   exactly); ``run --detector yolov8`` without ``--weights`` runs on a
   random initialisation and warns; the training commands default to the
   card.
+- The operator's tools: ``--trace --serve 0 --serve-every 2`` through the
+  reference's ``cli run`` and the port's, both on a stand-in system
+  (``FakeSystem``), per frame, ``--batch 4`` and ``--threaded``: the live
+  view gets the same updates and trace.json the same events; on the port's
+  system ``--trace`` (a "frame" pair a frame) and ``--serve`` (N // 2 + 1
+  updates) leave the trajectory and the stats but for their timings as
+  without them; ``--threaded`` moves the frames through the native
+  runtime's NativeQueue byte for byte; ``parity --seeds 2`` reports the
+  direct runs of the port's SLAMSystem and OracleSLAM, with the
+  reference's keys, and defaults to the card.
 - The host modules the outputs go through are numpy copies of the
   reference's: TUM trajectory files (``quat_from_mat``, ``write_tum``,
   ``read_tum``), the ATE (``umeyama_alignment``, ``ate_rmse``; 1e-12),
@@ -37,6 +47,7 @@ against the JAX package.
 
 import json
 import time
+import types
 
 import numpy as np
 import pytest
@@ -447,3 +458,276 @@ def test_train_commands_default_to_the_card(cmd, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main([cmd, "--out", str(tmp_path / "x.npz")])
+
+
+# --- the operator's tools: --trace, --serve, parity -----------------------
+
+TOOL_ARGS = ["run", "--device", "cpu", "--source", "synthetic", "--width",
+             "160", "--height", "120", "--frames", str(N), "--seed", "3"]
+TIMING_KEYS = {"fps", "wall_s", "stages"}
+
+
+class Recorder:
+    """Stands in for ``utils/serve.LiveView`` in both packages: records
+    what each update would publish."""
+
+    made = []
+
+    def __init__(self, port=8080, host="127.0.0.1"):
+        self.port = port
+        self.updates = []
+        self.closed = False
+        Recorder.made.append(self)
+
+    def update(self, gray, uv, stats, traj_xyz=None, landmarks_xyz=None):
+        self.updates.append((
+            gray is None, None if uv is None else len(uv), sorted(stats),
+            stats.get("frames"),
+            None if traj_xyz is None else np.shape(traj_xyz),
+            None if landmarks_xyz is None else np.shape(landmarks_xyz)))
+
+    def close(self):
+        self.closed = True
+
+
+class FakeSystem:
+    """A stand-in for either package's SLAMSystem with the surface their
+    ``cli run`` and ``parity`` read (counters, trajectory, keypoint block,
+    landmarks), so that both commands' own logic (live-view cadence, trace
+    spans, the threaded transport, the parity report) runs on equal
+    inputs at no cost."""
+
+    enable_place_recognition = False
+
+    def __init__(self, config, **kw):
+        self.config = config
+        self.stats = dict(frames=0, keyframes=0, ba_runs=0)
+        self.trajectory = []
+        n = config.map.max_obs_per_keyframe
+        self.tracker_state = types.SimpleNamespace(prev=types.SimpleNamespace(
+            mask=torch.arange(n) % 3 == 0, uv=torch.rand(n, 2) * 100))
+
+    def process(self, gray, depth, timestamp, detections=None):
+        i = len(self.trajectory)
+        self.stats["frames"] += 1
+        self.stats["keyframes"] += i % 5 == 0
+        self.trajectory.append(types.SimpleNamespace(
+            timestamp=float(timestamp), t_wc=np.array([0.01 * i, 0.002 * i,
+                                                       0.001 * i * i]),
+            tracking_ok=True, is_keyframe=i % 5 == 0))
+
+    def process_batch(self, grays, depths, stamps, detections=None):
+        for g, d, s in zip(grays, depths, stamps):
+            self.process(g, d, s)
+
+    def finalize(self):
+        pass
+
+    def frontend_trajectory(self):
+        ts = np.stack([f.t_wc for f in self.trajectory])
+        return (np.asarray([f.timestamp for f in self.trajectory]),
+                np.broadcast_to(np.eye(3), (len(ts), 3, 3)), ts)
+
+    def keyframe_trajectory(self):
+        kf = [f for f in self.trajectory if f.is_keyframe]
+        return (np.asarray([f.timestamp for f in kf]),
+                np.broadcast_to(np.eye(3), (len(kf), 3, 3)),
+                np.stack([f.t_wc for f in kf]))
+
+    def landmarks_world(self):
+        n = 10 * len(self.trajectory)
+        return dict(xyz=np.ones((n, 3)), n_obs=np.full(n, 2),
+                    category=np.zeros(n, np.int32))
+
+
+def _both_clis(monkeypatch, tmp_path, argv):
+    """The same argv through the reference's cli and the port's, each on
+    FakeSystem, with Recorder as the live view → (reference, port) dicts of
+    the views made and the trace events (name, phase)."""
+    from dynamic_visual_slam_tpu.pipeline import slam as jslam
+    from dynamic_visual_slam_tpu.utils import serve as jserve
+    from dynamic_visual_slam_tpu_torch.utils import serve as pserve
+    monkeypatch.setattr(jcli, "_enable_compilation_cache", lambda: None)
+    monkeypatch.setattr(jslam, "SLAMSystem", FakeSystem)
+    monkeypatch.setattr(pslam, "SLAMSystem", FakeSystem)
+    monkeypatch.setattr(jserve, "LiveView", Recorder)
+    monkeypatch.setattr(pserve, "LiveView", Recorder)
+    out = []
+    for name, main in (("ref", lambda a: jcli.main(["--platform", "cpu"]
+                                                   + a)),
+                       ("port", lambda a: cli.main(a + ["--device", "cpu"]))):
+        Recorder.made = []
+        d = tmp_path / name
+        assert main(argv + ["--out-dir", str(d)]) == 0
+        trace = d / "trace.json"
+        events = [(e["name"], e["ph"]) for e in json.loads(
+            trace.read_text())["traceEvents"]] if trace.exists() else None
+        out.append(dict(views=Recorder.made, events=events,
+                        stats=json.loads((d / "stats.json").read_text())))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["frames", "batch", "threaded"])
+def test_trace_and_live_view_follow_the_reference(monkeypatch, tmp_path,
+                                                  mode):
+    """``--trace --serve 0 --serve-every 2`` through both packages' ``cli
+    run`` on FakeSystem: the live view gets the same updates (per frame:
+    every 2nd frame and once after the run, the landmark cloud every 6th
+    refresh; under --batch after each batch; under --threaded only after
+    the run) and closes; trace.json holds the same events (a "frame" pair a
+    frame on the per-frame path, none under --batch and --threaded)."""
+    extra = {"frames": [], "batch": ["--batch", "4"],
+             "threaded": ["--threaded"]}[mode]
+    ref, port = _both_clis(monkeypatch, tmp_path, TOOL_ARGS[:1] + TOOL_ARGS[
+        3:] + extra + ["--trace", "--serve", "0", "--serve-every", "2"])
+    assert len(port["views"]) == len(ref["views"]) == 1
+    got, want = port["views"][0], ref["views"][0]
+    assert got.updates == want.updates
+    assert got.port == 0 and got.closed
+    n_updates = {"frames": N // 2 + 1, "batch": N // 4 + 1,
+                 "threaded": 1}[mode]
+    assert len(got.updates) == n_updates
+    assert got.updates[-1][0] and got.updates[-1][5] == (10 * N, 3)
+    assert port["events"] == ref["events"]
+    assert len(port["events"]) == (2 * N if mode == "frames" else 0)
+    assert set(port["stats"]) == set(ref["stats"])
+
+
+@pytest.mark.parametrize("tool", ["trace", "serve"])
+def test_trace_and_serve_leave_the_run_unchanged(monkeypatch, tmp_path,
+                                                 plain_run, tool):
+    """The port's system through ``cli run`` with ``--trace`` (a "frame"
+    begin/end pair a frame in trace.json) or with ``--serve 0
+    --serve-every 2`` (the reference's number of updates, N // 2 + 1):
+    the trajectory file and the stats but for their timings equal the
+    same command's without the flag."""
+    from dynamic_visual_slam_tpu_torch.utils import serve as pserve
+    monkeypatch.setattr(pserve, "LiveView", Recorder)
+    Recorder.made = []
+    extra = ["--trace"] if tool == "trace" else ["--serve", "0",
+                                                 "--serve-every", "2"]
+    out_dir = tmp_path / tool
+    assert cli.main(TOOL_ARGS + extra + ["--out-dir", str(out_dir)]) == 0
+    stats = json.loads((out_dir / "stats.json").read_text())
+    want = plain_run["stats"]
+    assert {k: v for k, v in stats.items() if k not in TIMING_KEYS} == \
+        {k: v for k, v in want.items() if k not in TIMING_KEYS}
+    assert set(stats) == set(want)
+    assert (out_dir / "frontend.tum").read_text() == plain_run["tum"]
+    if tool == "trace":
+        events = json.loads((out_dir / "trace.json").read_text())[
+            "traceEvents"]
+        assert [(e["name"], e["ph"]) for e in events] == \
+            [("frame", "B"), ("frame", "E")] * N
+        assert all(b["ts"] <= e["ts"] for b, e in zip(events[::2],
+                                                      events[1::2]))
+    else:
+        assert not (out_dir / "trace.json").exists()
+        (view,) = Recorder.made
+        assert len(view.updates) == N // 2 + 1 and view.closed
+        assert [u[3] for u in view.updates] == list(range(2, N + 1, 2)) + [N]
+
+
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("plain")
+    assert cli.main(TOOL_ARGS + ["--out-dir", str(out_dir)]) == 0
+    return dict(stats=json.loads((out_dir / "stats.json").read_text()),
+                tum=(out_dir / "frontend.tum").read_text())
+
+
+def test_threaded_takes_the_native_queue(monkeypatch, tmp_path):
+    """``--threaded`` moves the frames through the native runtime's
+    NativeQueue (built at first use), byte for byte."""
+    from dynamic_visual_slam_tpu_torch import native
+    from dynamic_visual_slam_tpu_torch.pipeline import runner
+    queues, got = [], []
+    make_queue = runner._make_queue
+
+    def recorded(*a, **k):
+        queues.append(make_queue(*a, **k))
+        return queues[-1]
+
+    class Seen(FakeSystem):
+        def process(self, gray, depth, timestamp, detections=None):
+            got.append(_pack_frame(gray, np.asarray(depth) / 1000.0))
+            super().process(gray, depth, timestamp)
+
+    monkeypatch.setattr(runner, "_make_queue", recorded)
+    monkeypatch.setattr(pslam, "SLAMSystem", Seen)
+    res = {}
+    assert cli.main(TOOL_ARGS + ["--threaded", "--out-dir", str(tmp_path)],
+                    out=res) == 0
+    assert native.available(), native.error()
+    assert len(queues) == 1 and isinstance(queues[0], native.NativeQueue)
+    cfg = SLAMConfig().replace(camera=SLAMConfig().camera.scaled(160, 120))
+    want = [_pack_frame(g, d) for g, d, *_ in synthetic.generate_sequence(
+        cfg.camera, N, seed=3, depth_noise=0.004)]
+    assert got == want
+    assert res["stats"]["queue_dropped"] == 0
+
+
+PARITY_ARGS = ["parity", "--width", "160", "--height", "120", "--frames",
+               "20", "--seed", "0"]
+
+
+def test_parity_reports_the_port_against_the_oracle(monkeypatch, tmp_path):
+    """``parity --device cpu --seeds 2`` at 160x120 on 20 frames: the
+    oracle's fields equal the port's OracleSLAM run directly on the same
+    frames, the pipeline's (``tpu_`` keys) a direct SLAMSystem(
+    enable_place_recognition=False) run, ATEs and ratio as the reference
+    computes them; the report and its summary carry the reference's keys
+    (the reference's command run on FakeSystem, whose oracle fields must
+    equal the port's)."""
+    from dynamic_visual_slam_tpu_torch.oracle.pipeline_cpu import OracleSLAM
+    res = {}
+    assert cli.main(PARITY_ARGS + ["--device", "cpu", "--seeds", "2",
+                                   "--out-dir", str(tmp_path / "port")],
+                    out=res) == 0
+    report = json.loads((tmp_path / "port" / "parity.json").read_text())
+    assert report == res["report"]
+    assert [r["seed"] for r in report["runs"]] == [0, 1]
+    cfg = SLAMConfig().replace(camera=SLAMConfig().camera.scaled(160, 120))
+    frames = list(synthetic.generate_sequence(cfg.camera, 20, seed=0,
+                                              depth_noise=0.004))
+    gt_t = np.stack([f[3] for f in frames])
+    slam = SLAMSystem(cfg, enable_place_recognition=False, device="cpu")
+    orc = OracleSLAM(cfg, run_ba=True)
+    for g, d, _, _, ts in frames:
+        slam.process(g, d, ts)
+        orc.process(g, d, ts)
+    slam.finalize()
+    tpu_t, orc_t = slam.frontend_trajectory()[2], orc.frontend_trajectory()[2]
+    run = report["runs"][0]
+    tpu_ate = trajectory.ate_rmse(tpu_t, gt_t)
+    orc_ate = trajectory.ate_rmse(orc_t, gt_t)
+    assert run == dict(
+        source="synthetic(seed=0)", frames=20,
+        tpu_keyframes=slam.stats["keyframes"],
+        oracle_keyframes=len(orc.keyframes),
+        oracle_ba_rounds=orc.ba_rounds,
+        tpu_vs_oracle_ate_m=round(trajectory.ate_rmse(tpu_t, orc_t), 5),
+        tpu_ate_m=round(tpu_ate, 5), oracle_ate_m=round(orc_ate, 5),
+        ate_ratio=round(tpu_ate / orc_ate, 4), seed=0)
+    # the reference's report on the same frames, its pipeline FakeSystem
+    from dynamic_visual_slam_tpu.pipeline import slam as jslam
+    monkeypatch.setattr(jcli, "_enable_compilation_cache", lambda: None)
+    monkeypatch.setattr(jslam, "SLAMSystem", FakeSystem)
+    assert jcli.main(["--platform", "cpu"] + PARITY_ARGS + [
+        "--seeds", "2", "--out-dir", str(tmp_path / "ref")]) == 0
+    ref = json.loads((tmp_path / "ref" / "parity.json").read_text())
+    assert set(ref) == set(report) == {"runs", "summary"}
+    assert set(ref["summary"]) == set(report["summary"])
+    assert report["summary"]["n"] == 2
+    assert report["summary"]["resolution"] == "160x120"
+    for r, p in zip(ref["runs"], report["runs"]):
+        assert set(r) == set(p)
+        for key in ("source", "frames", "seed", "oracle_keyframes",
+                    "oracle_ba_rounds", "oracle_ate_m"):
+            assert r[key] == p[key], key
+
+
+def test_parity_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(PARITY_ARGS + ["--out-dir", str(tmp_path)])

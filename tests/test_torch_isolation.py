@@ -70,12 +70,21 @@ def test_no_jax_or_reference_imports():
                 "utils/profiling.py", "pipeline/wire.py",
                 "pipeline/snapshot.py", "parallel/mesh.py",
                 "models/convert_ultralytics.py", "place/pretrain.py",
-                "semantic/train.py"):
+                "semantic/train.py", "native/__init__.py", "native/build.py",
+                "utils/serve.py", "oracle/ba_cpu.py",
+                "oracle/pipeline_cpu.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
            for f in files}
     assert not {f: n for f, n in bad.items() if n}
+    # the port builds and loads its own native runtime, never the
+    # reference's committed library
+    for f in files + sorted((PORT / "native").iterdir()):
+        if f.suffix in (".py", ".cpp"):
+            text = f.read_text()
+            assert "libdvsruntime.so" not in text, f
+            assert "dynamic_visual_slam_tpu/native" not in text, f
     # the prefix is shared, so the comparison above must be exact
     assert "dynamic_visual_slam_tpu_torch" in _imported_top_level(
         ROOT / "chip_smoke.py")
