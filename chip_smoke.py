@@ -39,13 +39,26 @@ Phases (one JSON line each, prefixed "phase"):
            10 %)); step_batch against T step() calls (1e-6 m, flags equal,
            nothing dropped with kf_slots = T);
   fleet    bench.py's _fleet_bench on the port: SLAMFleet(SLAMConfig()),
-           8 streams at 720p, each offset by its index in the 6-frame
-           cycle, step_batch calls of 24 scan steps: one warm-up call and
-           one run_ba, then 5 timed calls; aggregate fps, BA rounds and
-           per-stream counters; launches of one scan step (a step() call)
-           under torch.profiler at B = 8 against B = 1 (stream 0's
-           frame), which must stay below twice; B1 and B2 must launch
-           once a scan step;
+           8 streams at 720p on make_mesh(min(8, cards)) as bench.py's
+           (one shard on a one-card machine), each stream offset by its
+           index in the 6-frame cycle, step_batch calls of 24 scan steps:
+           one warm-up call and one run_ba, then 5 timed calls; aggregate
+           fps, BA rounds and per-stream counters; launches of one scan
+           step (a step() call) under torch.profiler at B = 8 against B =
+           1 (stream 0's frame), which must stay below twice a shard's; B1
+           and B2 must launch once a shard a scan step;
+  fleet_mesh  the fleet on a two-shard mesh (the first two cards, else
+           ["cuda:0", "cuda:0"]: two shards, a thread each, on one card)
+           against the one-device fleet, both on keyed draws: 2 streams at
+           160x120 through step and step_batch (1e-6 m, flags equal); then
+           SLAMConfig() at 720p, 8 streams as fleet, step_batch calls of 24
+           scan steps, 1 warm-up and 2 timed a fleet, then run_ba: per
+           stream tests/test_parallel.py's bounds (all 2 cm and 0.5 deg,
+           keyframes within 1; the first 3 frames within 1.5e-4 m, 1.5
+           times the card's measured split), BA costs finite, B1
+           and B2 once a shard a scan step; aggregate fps of both fleets
+           (does a thread a shard overlap the host's launch work?) and
+           peak memory;
   snapshot place_small's fixture with place recognition on: the first
            half through process(), save(), restore() into a fresh system,
            both continue: flags equal, positions within 1e-6 m (else the
@@ -107,9 +120,10 @@ Phases (one JSON line each, prefixed "phase"):
            5 mm after the gauge alignment, rotations within 0.05 deg
            (tests/test_ba_oracle.py's bounds).
 The kernels' launch counters are reset just before main, fleet_small,
-fleet, snapshot, tools, parity, place_frames, place_batch, dynamic_small
-(each condition), dynamic_frames and train_vocab are driven and read just
-after; B1 and B2 must have launched in each.  The kernels phase also holds B1 and B2 at the fleet's
+fleet, fleet_mesh (each fleet), snapshot, tools, parity, place_frames,
+place_batch, dynamic_small (each condition), dynamic_frames and
+train_vocab are driven and read just after; B1 and B2 must have launched
+in each.  The kernels phase also holds B1 and B2 at the fleet's
 shape (8 frames) and prints how many blurred pixels differ between the
 card and the CPU.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -149,7 +163,9 @@ from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.models import convert_ultralytics, yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
-from dynamic_visual_slam_tpu_torch.parallel.mesh import SLAMFleet
+from dynamic_visual_slam_tpu_torch.parallel.mesh import (SLAMFleet, _gather,
+                                                         make_mesh,
+                                                         shard_batch)
 from dynamic_visual_slam_tpu_torch.pipeline import runner
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 from dynamic_visual_slam_tpu_torch.place import bow, pretrain
@@ -201,6 +217,11 @@ FLEET_STREAMS = 8              # fleet: bench.py's _fleet_bench
 FLEET_T = 24                   # fleet: scan steps a step_batch call
 FLEET_TIMED = 5                # fleet: timed step_batch calls
 FLEET_SMALL_FRAMES = 14        # fleet_small: tests/test_parallel.py's
+FLEET_MESH_TIMED = 2           # fleet_mesh: timed step_batch calls a fleet
+# fleet_mesh at 720p, the first 3 scan steps: 1.5 x the 9.64e-5 m measured
+# on an H100 (scripts/torch_mesh_split.py: the tracker's batched arithmetic
+# at 4 streams a shard against 8 moves an F-RANSAC inlier at step 1)
+FLEET_MESH_FIRST3_M = 1.5e-4
 SNAPSHOT_CLI_FRAMES = 6        # snapshot: 720p frames a cli run
 TOOLS_FRAMES = 30              # tools: cli run --trace --serve, 424x240
 TOOLS_SERVE_EVERY = 5
@@ -1338,10 +1359,11 @@ STAGES = ("fm", "pnp", "anchor")
 def keyed_draws(device):
     """(fleet sampler, solo sampler of stream 0): the minimal sets of
     (stream, frame, stage) drawn from a generator seeded with that key, so
-    a fleet's stream and a solo system on its frames draw the same sets."""
-    gen = torch.Generator(device=device)
-
+    a fleet's stream and a solo system on its frames draw the same sets.
+    One generator a draw: the shards of a mesh call it from a thread
+    each."""
     def draw(stream, frame, stage, n_hyp, size, count):
+        gen = torch.Generator(device=count.device)
         gen.manual_seed((stream * 1_000_003 + frame) * len(STAGES)
                         + STAGES.index(stage))
         return ransac.sample_indices(gen, n_hyp, size, count)
@@ -1363,14 +1385,7 @@ def phase_fleet_small(device="cuda"):
     test's bounds; then step_batch against T step() calls."""
     cfg = fleet_config()
     n = FLEET_SMALL_FRAMES
-    seqs = [list(synthetic.generate_sequence(cfg.camera, n, seed=s))
-            for s in (3, 7)]
-    grays = np.stack([[q[i][0] for q in seqs] for i in range(n)]
-                     ).astype(np.uint8)
-    depths = np.stack([[q[i][1] for q in seqs] for i in range(n)]
-                      ).astype(np.float32)
-    stamps = np.asarray([[q[i][4] for q in seqs] for i in range(n)],
-                        np.float32)
+    grays, depths, stamps = fleet_small_frames(n)
     fleet_draws, solo_draws = keyed_draws(device)
     fleet = SLAMFleet(cfg, 2, device=device, sampler=fleet_draws)
     solo = SLAMSystem(cfg, enable_place_recognition=False, device=device,
@@ -1460,13 +1475,24 @@ def profile_launches(fn, device="cuda"):
     return launches, device_us / 1e3, wall
 
 
+def fleet_mesh_size(streams: int) -> int:
+    """bench.py's min(streams, device count), down to a count that divides
+    the streams."""
+    n = min(streams, torch.cuda.device_count())
+    return max(d for d in range(1, n + 1) if streams % d == 0)
+
+
 def phase_fleet(frames, cfg: SLAMConfig, device="cuda"):
-    """bench.py's _fleet_bench on the port: 8 streams at 720p, step_batch
-    calls of 24 scan steps; one warm-up call and one run_ba, then 5 timed
-    calls ending in sync(device).  Then launches a scan step
-    under torch.profiler at B = 8 and at B = 1 (stream 0's frames)."""
+    """bench.py's _fleet_bench on the port: 8 streams at 720p over
+    make_mesh(min(8, cards)) as bench.py's, step_batch calls of 24 scan
+    steps; one warm-up call and one run_ba, then FLEET_TIMED timed calls
+    ending in sync(device).  Then launches a scan step under
+    torch.profiler at B = 8 and at B = 1 (stream 0's frames)."""
     b = FLEET_STREAMS
-    fleet = SLAMFleet(cfg, b, device=device)
+    mesh = make_mesh(fleet_mesh_size(b)) if device == "cuda" \
+        else make_mesh(devices=[device])
+    fleet = SLAMFleet(cfg, b, mesh)
+    shards = mesh.size
     t0 = time.perf_counter()
     fleet.step_batch(*fleet_batch(frames, 0, b, device))
     fleet.run_ba(float(FLEET_T - 1) / 30.0)
@@ -1502,7 +1528,9 @@ def phase_fleet(frames, cfg: SLAMConfig, device="cuda"):
         lambda: solo.step(gs[0, :1], ds[0, :1], ts[0, :1], auto_ba=False),
         device)
     n_frames = FLEET_TIMED * FLEET_T * b
-    emit("fleet", streams=b, scan_steps=FLEET_T, timed_calls=FLEET_TIMED,
+    emit("fleet", streams=b, shards=shards,
+         mesh=[str(d) for d in mesh.devices], scan_steps=FLEET_T,
+         timed_calls=FLEET_TIMED,
          aggregate_fps=n_frames / dt, ms_per_step_batch=dt * 1e3 / FLEET_TIMED,
          ms_per_call_host=per_call, warmup_s=warm_s, ba_runs=fleet.ba_runs,
          ba_runs_timed=fleet.ba_runs - ba_before, keyframes=st["keyframes"],
@@ -1519,15 +1547,176 @@ def phase_fleet(frames, cfg: SLAMConfig, device="cuda"):
     if not finite:
         fail("fleet: a pose or BA cost is not finite")
     for name in kernels.SOURCES:
-        if launches.get(name, 0) != FLEET_TIMED * FLEET_T:
+        if launches.get(name, 0) != shards * FLEET_TIMED * FLEET_T:
             fail(f"fleet: kernel {name} launched {launches.get(name, 0)} "
-                 f"times for {FLEET_TIMED * FLEET_T} scan steps")
+                 f"times for {shards} shards x {FLEET_TIMED * FLEET_T} scan "
+                 "steps")
     if fleet.ba_runs < 1:
         fail("fleet: no BA round ran")
-    if not n8 < 2 * n1:
-        fail(f"fleet: {n8} launches a scan step at B = {b}, {n1} at B = 1 "
-             "(must stay below twice)")
+    if not n8 < 2 * shards * n1:
+        fail(f"fleet: {n8} launches a scan step at B = {b} over {shards} "
+             f"shards, {n1} at B = 1 (must stay below twice a shard's)")
     return launches
+
+
+def fleet_small_frames(n: int):
+    """fleet_config()'s 2 streams, sequence seeds 3 and 7, n frames: grays,
+    depths (N, 2, H, W), stamps (N, 2)."""
+    cam = fleet_config().camera
+    seqs = [list(synthetic.generate_sequence(cam, n, seed=s))
+            for s in (3, 7)]
+    grays = np.stack([[q[i][0] for q in seqs] for i in range(n)]
+                     ).astype(np.uint8)
+    depths = np.stack([[q[i][1] for q in seqs] for i in range(n)]
+                      ).astype(np.float32)
+    stamps = np.asarray([[q[i][4] for q in seqs] for i in range(n)],
+                        np.float32)
+    return grays, depths, stamps
+
+
+def two_shard_mesh(device="cuda"):
+    """The machine's first two cards when it has them, else its one card
+    listed twice (two shards, a thread each, on one card)."""
+    if device != "cuda":
+        return make_mesh(devices=[device] * 2)
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(2)
+    return make_mesh(devices=["cuda:0"] * 2)
+
+
+def gather_cost(out, mesh, reps: int = 50):
+    """(host ms, leaves) of the mesh fleet's output gather: a step's
+    TrackOutput split over ``mesh`` by shard_batch, concatenated on
+    devices[0] as step does (mean of ``reps``, each synchronised)."""
+    parts = shard_batch(out, mesh)
+    leaves = sum(torch.is_tensor(x)
+                 for x in torch.utils._pytree.tree_leaves(out))
+    _gather(parts, mesh.devices[0])
+    sync(mesh.devices[0])
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _gather(parts, mesh.devices[0])
+        sync(mesh.devices[0])
+    return (time.perf_counter() - t0) * 1e3 / reps, leaves
+
+
+def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
+    """The fleet split over a two-shard mesh against the one-device fleet,
+    both on keyed_draws: (a) fleet_small's 2 streams at 160x120, 14
+    frames, through step and then step_batch: positions within 1e-6 m,
+    keyframe flags equal; (b) SLAMConfig() at 720p, 8 streams as
+    fleet_batch, step_batch calls of FLEET_T scan steps, one warm-up call
+    and FLEET_MESH_TIMED timed ones (host clock, synchronised) a fleet,
+    then run_ba: per stream, positions within tests/test_parallel.py's
+    bounds (all 2 cm, 0.5 deg; its first 3 frames' 1e-5 m becomes
+    FLEET_MESH_FIRST3_M on the card, where the split changes the tracker's
+    batched arithmetic), keyframes within 1,
+    BA costs finite; the mesh fleet's B1 and B2 each once a shard a scan
+    step; aggregate fps of both fleets and the peak memory."""
+    mesh = two_shard_mesh(device)
+    shards = mesh.size
+    fleet_draws, _ = keyed_draws(device)
+    # (a) small, step then step_batch
+    cfg_s = fleet_config()
+    n = FLEET_SMALL_FRAMES
+    grays, depths, stamps = fleet_small_frames(n)
+    small = {}
+    for name, kw in (("one", dict(device=device)), ("mesh", dict(mesh=mesh))):
+        f = SLAMFleet(cfg_s, 2, sampler=fleet_draws, **kw)
+        outs = [f.step(grays[i], depths[i], stamps[i], auto_ba=False)
+                for i in range(n)]
+        fb = SLAMFleet(cfg_s, 2, kf_slots=n, sampler=fleet_draws, **kw)
+        if name == "one":
+            gather_ms, gather_leaves = gather_cost(outs[-1], mesh)
+        small[name] = (
+            np.stack([o.t_wc.cpu().numpy() for o in outs]),
+            np.stack([o.is_keyframe.cpu().numpy() for o in outs]),
+            fb.step_batch(grays, depths, stamps, auto_ba=False).cpu().numpy())
+    (t1, k1, tb1), (t2, k2, tb2) = small["one"], small["mesh"]
+    small_step_err = float(np.linalg.norm(t2 - t1, axis=-1).max())
+    small_batch_err = float(np.linalg.norm(tb2[..., 4:7] - tb1[..., 4:7],
+                                           axis=-1).max())
+    small_flags = bool(np.array_equal(k1, k2)) and bool(
+        np.array_equal(tb1[..., 8], tb2[..., 8]))
+    # (b) full width
+    b = FLEET_STREAMS
+    calls = [fleet_batch(frames, k * FLEET_T, b, device)
+             for k in range(1 + FLEET_MESH_TIMED)]
+    sync(device)
+    cards = sorted({d.index for d in mesh.devices}) if device == "cuda" \
+        else []
+    runs = {}
+    for name, kw in (("one", dict(device=device)), ("mesh", dict(mesh=mesh))):
+        fleet = telems = None     # the first fleet's memory, freed
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        fleet = SLAMFleet(cfg, b, sampler=fleet_draws, **kw)
+        kernels.reset_launch_counts()
+        telems, per_call = [], []
+        for k, (gs, ds, ts) in enumerate(calls):
+            t0 = time.perf_counter()
+            telems.append(fleet.step_batch(gs, ds, ts, auto_ba=False))
+            sync(device)
+            per_call.append(time.perf_counter() - t0)
+        launches = dict(kernels.launches)
+        costs = fleet.run_ba(float(len(calls) * FLEET_T - 1) / 30.0)
+        st = fleet.stats()
+        runs[name] = dict(
+            telems=torch.cat(telems).cpu().numpy(), launches=launches,
+            fps=FLEET_MESH_TIMED * FLEET_T * b / sum(per_call[1:]),
+            ms_per_call=[x * 1e3 for x in per_call],
+            costs=costs.cpu().numpy(), keyframes=st["keyframes"],
+            peak_mem_gb=[torch.cuda.max_memory_allocated(c) / 1e9
+                         for c in cards])
+    one, two = runs["one"], runs["mesh"]
+    err = np.linalg.norm(two["telems"][..., 4:7] - one["telems"][..., 4:7],
+                         axis=-1)                         # (T, B)
+    dots = np.abs(np.sum(two["telems"][..., 0:4] * one["telems"][..., 0:4],
+                         -1))
+    ang = float(np.degrees(2 * np.arccos(np.clip(dots, -1, 1))).max())
+    kf_diff = int(np.abs(np.asarray(two["keyframes"])
+                         - np.asarray(one["keyframes"])).max())
+    steps = len(calls) * FLEET_T
+    emit("fleet_mesh", mesh=[str(d) for d in mesh.devices],
+         distinct_cards=len(set(mesh.devices)),
+         small=dict(frames=n, streams=2, step_err_m=small_step_err,
+                    step_batch_err_m=small_batch_err,
+                    flags_equal=small_flags),
+         gather_step_output_ms=gather_ms, gather_leaves=gather_leaves,
+         streams=b, scan_steps=steps, timed_calls=FLEET_MESH_TIMED,
+         pos_err_first3_m=float(err[:3].max()), pos_err_m=float(err.max()),
+         rot_err_deg=ang, keyframes_one=one["keyframes"],
+         keyframes_mesh=two["keyframes"],
+         ba_costs_one=one["costs"].tolist(),
+         ba_costs_mesh=two["costs"].tolist(),
+         aggregate_fps_one=one["fps"], aggregate_fps_mesh=two["fps"],
+         ms_per_call_one=one["ms_per_call"],
+         ms_per_call_mesh=two["ms_per_call"],
+         launches=two["launches"], peak_mem_gb_one=one["peak_mem_gb"],
+         peak_mem_gb_mesh=two["peak_mem_gb"])
+    checks = [
+        (small_step_err < 1e-6, f"small: step {small_step_err} m >= 1e-6"),
+        (small_batch_err < 1e-6,
+         f"small: step_batch {small_batch_err} m >= 1e-6"),
+        (small_flags, "small: keyframe flags differ"),
+        (err[:3].max() < FLEET_MESH_FIRST3_M,
+         f"first 3 frames {err[:3].max()} m >= {FLEET_MESH_FIRST3_M}"),
+        (err.max() < 2e-2, f"positions {err.max()} m >= 0.02"),
+        (ang < 0.5, f"rotations {ang} deg >= 0.5"),
+        (kf_diff <= 1, f"keyframes {two['keyframes']} vs "
+         f"{one['keyframes']}"),
+        (bool(np.isfinite(two["costs"]).all()
+              and np.isfinite(one["costs"]).all()), "a BA cost not finite"),
+    ]
+    for name in kernels.SOURCES:
+        got = two["launches"].get(name, 0)
+        checks.append((got == shards * steps,
+                       f"kernel {name} launched {got} times for {shards} "
+                       f"shards x {steps} scan steps"))
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        fail("fleet_mesh: " + "; ".join(bad))
+    return two["launches"]
 
 
 def first_divergence(ra, rb):
@@ -1909,6 +2098,7 @@ def main() -> None:
     launches = phase_main(frames, cfg)
     phase_fleet_small()
     fleet_launches = phase_fleet(frames, cfg)
+    fleet_mesh_launches = phase_fleet_mesh(frames, cfg)
     phase_place_small()
     phase_snapshot()
     tools_launches = phase_tools()
@@ -1925,12 +2115,13 @@ def main() -> None:
         # the main path's count; B3 (corner_score) has no caller there
         r["launches"] = launches[r["name"]]
         r["fleet_launches"] = fleet_launches.get(r["name"], 0)
+        r["fleet_mesh_launches"] = fleet_mesh_launches.get(r["name"], 0)
         r["train_vocab_launches"] = vocab_launches.get(r["name"], 0)
         r["tools_launches"] = tools_launches.get(r["name"], 0)
         r["parity_launches"] = parity_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
-            "fleet_launches", "train_vocab_launches", "tools_launches",
-            "parity_launches", "max_abs_err", "ms",
+            "fleet_launches", "fleet_mesh_launches", "train_vocab_launches",
+            "tools_launches", "parity_launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     emit("done", seconds=time.perf_counter() - T_START)

@@ -17,7 +17,8 @@ OIHW state dict).
 
 The reference's ``TrackerState.rng`` (a threefry key, two uint32 words a
 state) has no tensor counterpart: the port takes its randomness from a
-``torch.Generator`` (``SLAMSystem`` and ``SLAMFleet`` seed theirs with 0),
+``torch.Generator`` (``SLAMSystem`` seeds its with 0, each shard of a
+``SLAMFleet`` its with the index of its first stream),
 or from an explicit sampler.  ``from_numpy`` leaves ``rng`` out of the
 state and ``seed_from_words`` maps its words to a generator seed (the
 first stream's, for a fleet's states with a leading stream dim);

@@ -13,8 +13,11 @@ once where the plain PyTorch versions round twice, which would flip the
 ``rint`` of a rotated BRIEF offset.
 
 ``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/fields.py`` and ``ops/descriptors.py``; ``chip_smoke.py`` resets it
-before it drives the main path and reads it after.
+``ops/fields.py`` and ``ops/descriptors.py`` (through ``count``, under a
+lock: the fleet's shards launch from one thread each); ``chip_smoke.py``
+resets it before it drives the main path and reads it after.  ``entry``
+builds and loads under a lock too, so threads that reach an unbuilt kernel
+together run one ``nvcc``.
 
 The kernels (each source's header note has the detail):
 
@@ -42,6 +45,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -67,10 +71,20 @@ ENTRY = {"fast_score": "fast_score_levels",
 
 launches: collections.Counter = collections.Counter()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    launches.clear()
+    with _count_lock:
+        launches.clear()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``; the wrappers call it where they
+    launch, and nowhere else."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def _nvcc() -> str:
@@ -128,12 +142,15 @@ def entry(name: str):
     """The C entry point of kernel ``name`` (building it if needed)."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, ENTRY[name])
-        fn.argtypes = ARGTYPES[ENTRY[name]]
-        fn.restype = ctypes.c_int
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                fn = getattr(lib, ENTRY[name])
+                fn.argtypes = ARGTYPES[ENTRY[name]]
+                fn.restype = ctypes.c_int
+                _loaded[name] = lib
     return getattr(lib, ENTRY[name])
 
 

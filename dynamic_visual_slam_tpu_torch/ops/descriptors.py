@@ -128,7 +128,7 @@ def descriptors_moments(blur: Sequence[torch.Tensor],
                     xs.data_ptr(), n, pattern.data_ptr(), bits.data_ptr(),
                     m10.data_ptr(), m01.data_ptr(), stream)
     kernels.check(KERNEL, status)
-    kernels.launches[KERNEL] += 1
+    kernels.count(KERNEL)
     return bits, m10, m01
 
 

@@ -56,5 +56,5 @@ def fast_score_batch(levels: Sequence[torch.Tensor],
                     ctypes.cast(ws, ctypes.c_void_p),
                     len(levels), b, stream)
     kernels.check(KERNEL, status)
-    kernels.launches[counter] += 1
+    kernels.count(counter)
     return outs

@@ -127,6 +127,19 @@ def test_fleet_and_state_io_default_to_the_card(monkeypatch, tmp_path):
         wire.decode(b"\x00" * 64, capacity=8)
 
 
+def test_make_mesh_raises_without_a_card(monkeypatch):
+    """The fleet's mesh takes CUDA devices unless the caller lists CPU
+    ones: with no card it raises, and never shrinks to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.SLAMFleet(SLAMConfig().replace(
+            camera=SLAMConfig().camera.scaled(160, 120)), 2,
+            mesh.make_mesh(devices=["cuda:0"] * 2))
+    assert mesh.make_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
+
+
 def test_wrappers_take_the_plain_path_only_on_the_cpu():
     levels = [torch.zeros((1, 40, 40), device="meta")]
     with pytest.raises(ValueError, match="unsupported device"):

@@ -447,3 +447,52 @@ def test_fleet_step_does_not_synchronise(sequence):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(costs).all())
+
+
+def _fleet_on_a_mesh(sequence, devices):
+    """step_batch and run_ba of a 2-stream fleet on ``devices`` against the
+    one-device fleet, both on tests/test_torch_mesh.py's keyed draws:
+    positions within 1e-6 m, flags equal, B1 and B2 launched once a shard a
+    scan step, each shard's work on its own card, the outputs on the
+    first."""
+    from test_torch_mesh import keyed_sampler
+    from dynamic_visual_slam_tpu_torch.parallel import mesh
+    cfg = SLAMConfig().replace(camera=CAM)
+    grays, depths = sequence
+    g = grays.reshape(2, 2, *grays.shape[1:])
+    d = depths.reshape(2, 2, *depths.shape[1:])
+    s = torch.arange(4, dtype=torch.float32).reshape(2, 2) / 30
+    one = mesh.SLAMFleet(cfg, 2, device="cuda", sampler=keyed_sampler)
+    want = one.step_batch(g, d, s, auto_ba=False)
+    m = mesh.make_mesh(devices=devices)
+    fleet = mesh.SLAMFleet(cfg, 2, m, sampler=keyed_sampler)
+    before = dict(kernels.launches)
+    got = fleet.step_batch(g, d, s, auto_ba=False)
+    torch.cuda.synchronize()
+    for name in kernels.SOURCES:
+        assert kernels.launches[name] - before.get(name, 0) == 2 * 2, name
+    assert fleet.stream_devices() == list(m.devices)
+    assert [sh.tracker_states.q_wc.device for sh in fleet.shards] == \
+        list(m.devices)
+    assert got.device == m.devices[0]
+    err = (got[..., 4:7] - want[..., 4:7].to(got.device)).norm(dim=-1)
+    assert float(err.max()) < 1e-6
+    assert torch.equal(got[..., 7:9], want[..., 7:9].to(got.device))
+    costs = fleet.run_ba(0.5)
+    assert costs.device == m.devices[0]
+    assert bool(torch.isfinite(costs).all())
+
+
+@pytest.mark.cuda
+def test_fleet_on_a_two_entry_mesh_of_one_card(sequence):
+    """make_mesh(devices=["cuda:0"] * 2): two shards, one thread each, on
+    one card."""
+    _fleet_on_a_mesh(sequence, ["cuda:0"] * 2)
+
+
+@pytest.mark.cuda
+def test_fleet_on_two_cards(sequence):
+    """One shard a card, where the machine has two."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _fleet_on_a_mesh(sequence, ["cuda:0", "cuda:1"])
