@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX, optax or anything of the JAX package; its entry points default to the
-card and raise without one; its kernels are built without fast math; and its
+imports JAX, optax, anything of the JAX package or the reference's root
+``bench`` module; its entry points (``bench`` and ``cli bench`` among
+them) default to the card and raise without one; its kernels are built without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
 query, loop verification, the pose-graph loop correction, the detector's
 network and NMS, the fleet's step, step_batch, BA and detector) never read
@@ -20,7 +21,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from dynamic_visual_slam_tpu_torch import convert, kernels
+from dynamic_visual_slam_tpu_torch import bench, cli, convert, kernels
 from dynamic_visual_slam_tpu_torch.backend import ba, mapping
 from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
@@ -38,7 +39,8 @@ from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dynamic_visual_slam_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "optax", "dynamic_visual_slam_tpu"}
+# "bench": the reference's root benchmark, which imports the JAX package
+FORBIDDEN = {"jax", "jaxlib", "optax", "dynamic_visual_slam_tpu", "bench"}
 
 
 def _port_files():
@@ -72,7 +74,7 @@ def test_no_jax_or_reference_imports():
                 "models/convert_ultralytics.py", "place/pretrain.py",
                 "semantic/train.py", "native/__init__.py", "native/build.py",
                 "utils/serve.py", "oracle/ba_cpu.py",
-                "oracle/pipeline_cpu.py"):
+                "oracle/pipeline_cpu.py", "bench.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
@@ -108,6 +110,11 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         SLAMSystem(SLAMConfig().replace(
             camera=SLAMConfig().camera.scaled(160, 120)))
+    # the headline benchmark: before it builds a frame
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.main()
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["bench"])
 
 
 def test_fleet_and_state_io_default_to_the_card(monkeypatch, tmp_path):

@@ -496,3 +496,36 @@ def test_fleet_on_two_cards(sequence):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     _fleet_on_a_mesh(sequence, ["cuda:0", "cuda:1"])
+
+
+@pytest.mark.cuda
+def test_overlapped_transport_equals_device_resident_batches(card):
+    """Stage 2 of the port's bench: batches staged by bench.overlapped
+    (page-locked ring, copy stream, the consumer's stream waiting on the
+    copy's event) give the same poses and flags, bit for bit, as batches
+    copied to the card before the loop (320x240, 4 batches of 8, place
+    recognition off)."""
+    from dynamic_visual_slam_tpu_torch import bench
+    cfg = SLAMConfig().replace(camera=CAM)
+    np_frames = bench.native_frames(cfg)
+    starts = range(0, 32, 8)
+    dev = torch.device("cuda")
+
+    def batch(i0):
+        return bench.batch_at(np_frames, i0, 8)
+
+    def run(batches):
+        s = slam.SLAMSystem(cfg, enable_place_recognition=False,
+                            sync_every=3, device=dev)
+        for gs, ds, tss in batches:
+            s.process_batch(gs, ds, tss)
+        s.finalize()
+        torch.cuda.synchronize()
+        return s.frontend_trajectory()[2], [
+            (f.is_keyframe, f.tracking_ok) for f in s.trajectory]
+
+    want_t, want_f = run([bench._on_device(batch(i0), dev) for i0 in starts])
+    got_t, got_f = run(bench.overlapped(batch, starts, dev))
+    assert len(got_t) == 32
+    np.testing.assert_array_equal(got_t, want_t)
+    assert got_f == want_f
