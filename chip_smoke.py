@@ -27,13 +27,14 @@ Phases (one JSON line each, prefixed "phase"):
            bring the replay's ATE below 0.15 m;
   place_frames  SLAMSystem(SLAMConfig()) with the shipped vocabulary and every
            default on, frame by frame through process() at 720p, on two
-           orbits of a revisit trajectory with injected depth-scale drift
+           orbits of 180 frames (cut from 240 for the script's time
+           limit) of a revisit trajectory with injected depth-scale drift
            (scripts/loop720p.py's fixture): at least one loop must be
            verified and applied;
   bench    the port's headline benchmark, bench.run("cuda") (what cli
            bench runs), its five stages at a cut depth: 72 timed frames in
            stage 1 (three batches, one BA tick) and in stage 2's serial
-           and overlapped runs, 120 in stage 3 (place recognition on, the
+           and overlapped runs, 72 in stage 3 (place recognition on, the
            shipped vocabulary), one timed fleet call of 8 x 24 scan steps,
            5 / 5 / 3 calls in stage 5; five lines, each the full line so
            far, the last with the reference's keys and the device, every
@@ -52,7 +53,7 @@ Phases (one JSON line each, prefixed "phase"):
            8 streams at 720p on make_mesh(min(8, cards)) as bench.py's
            (one shard on a one-card machine), each stream offset by its
            index in the 6-frame cycle, step_batch calls of 24 scan steps:
-           one warm-up call and one run_ba, then 2 timed calls (bench.py:
+           one warm-up call and one run_ba, then 1 timed call (bench.py:
            5; cut for the script's time limit, the bench phase's stage 4
            times the same calls); aggregate
            fps, BA rounds and per-stream counters; launches of one scan
@@ -63,8 +64,9 @@ Phases (one JSON line each, prefixed "phase"):
            ["cuda:0", "cuda:0"]: two shards, a thread each, on one card)
            against the one-device fleet, both on keyed draws: 2 streams at
            160x120 through step and step_batch (1e-6 m, flags equal); then
-           SLAMConfig() at 720p, 8 streams as fleet, step_batch calls of 24
-           scan steps, 1 warm-up and 1 timed a fleet, then run_ba: per
+           SLAMConfig() at 720p, 8 streams as fleet, step_batch calls of 12
+           scan steps (cut from 24 for the script's time limit), 1 warm-up
+           and 1 timed a fleet, then run_ba: per
            stream tests/test_parallel.py's bounds (all 2 cm and 0.5 deg,
            keyframes within 1; the first 3 frames within 1.5e-4 m, 1.5
            times the card's measured split), BA costs finite, B1
@@ -89,7 +91,7 @@ Phases (one JSON line each, prefixed "phase"):
            detector; tests/test_dynamic.py's limits on ATE and walker
            landmarks;
   dynamic_frames  cli.main(["run", "--source", "dynamic", "--detector",
-           "yolov8", ...]) in-process at 720p with every default on, 24
+           "yolov8", ...]) in-process at 720p with every default on, 16
            frames (cut from 120 for the script's time limit): fps, the
            detector and frame stages, ATE, walker and person landmarks;
   importers  an ultralytics-layout .pt with seeded random weights and
@@ -124,16 +126,26 @@ Phases (one JSON line each, prefixed "phase"):
            port's ATE must be below the CPU oracle's (the reference's
            claim for its anchored cells); the oracle's ATE beside the one
            of the cached oracle trajectory (parity_sweep/oracle_cache),
-           printed, not gated; B1 and B2 once a frame; then
+           printed, not gated, with the fingerprint that file is keyed by
+           and this run's config fingerprint: they differ, the cached
+           oracle comes from an older config; B1 and B2 once a frame; then
            backend/ba.optimize on the card against oracle/ba_cpu.solve
            (f64, CPU) at the shipped scale (8 keyframes, 512 landmarks,
            tests/test_ba.py::make_problem(20, ...) on the port's Lie
            helpers, priors off): cost within 1 %, camera centres within
            5 mm after the gauge alignment, rotations within 0.05 deg
-           (tests/test_ba_oracle.py's bounds).
+           (tests/test_ba_oracle.py's bounds);
+  sweep    evaluation/parity_sweep.main in-process at the matrix's full
+           width, 640x480, one seed, 120 frames, both tracking modes, the
+           oracle run fresh, into build/sweep_cuda/: the anchored cell's
+           mean ATE at most the oracle's (the reference's claim for its
+           anchored cells), the frame-to-frame cell printed, not gated;
+           both cells with the keys of the reference's
+           parity_sweep/cell_f120_640x480_anchored.json plus device and
+           power_limit; B1 and B2 once a frame of each run (2 x 120).
 The kernels' launch counters are reset just before main, fleet_small,
-fleet, fleet_mesh (each fleet), snapshot, tools, parity, place_frames,
-bench, dynamic_small (each condition), dynamic_frames and
+fleet, fleet_mesh (each fleet), snapshot, tools, parity, sweep,
+place_frames, bench, dynamic_small (each condition), dynamic_frames and
 train_vocab are driven and read just after; B1 and B2 must have launched
 in each.  The kernels phase also holds B1 and B2 at the fleet's
 shape (8 frames) and prints how many blurred pixels differ between the
@@ -154,6 +166,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -171,6 +184,7 @@ from dynamic_visual_slam_tpu_torch.config import (CameraConfig, MapConfig,
                                                   SLAMConfig)
 from dynamic_visual_slam_tpu_torch.core import lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
+from dynamic_visual_slam_tpu_torch.evaluation import parity_sweep
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.models import convert_ultralytics, yolov8
@@ -211,9 +225,10 @@ HIDE_HOST_CYCLES = 40_000_000  # cuda_ms's wait: about 20 ms at 1.98 GHz
 BATCH = 24
 WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA round
 TIMED_BATCHES = 5              # 120 frames (bench.py: 240), BA ticks twice
-ORBIT_FRAMES = 240             # place_frames: frames per orbit (two orbits)
+ORBIT_FRAMES = 180             # place_frames: frames per orbit, two orbits
+                               # (loop720p.py: 240)
 BENCH_TIMED = 72               # bench: stages 1 and 2 (bench.py: 240)
-PLACE_TIMED = 120              # bench: stage 3 (bench.py: 240)
+PLACE_TIMED = 72               # bench: stage 3 (bench.py: 240)
 BENCH_FLEET_BATCHES = 1        # bench: timed fleet calls (bench.py: 5)
 BENCH_REPS = (5, 5, 3)         # bench: stage 5's calls (bench.py: 50, 20, 10)
 TRANSPORT_BATCHES = 4          # bench: 720p batches of the transport check
@@ -245,12 +260,13 @@ YOLO_WEIGHTS = os.path.join(ROOT, "assets", "yolov8n_synth.npz")
 YOLO_CANDIDATE_TOL_PX = {256: 2.75, 640: 4.3}
 YOLO_BOX_TOL_PX = {256: 1.5, 640: 4.3}
 DYNAMIC_SMALL_FRAMES = 180     # semantic/train.in_loop_eval's default
-DYNAMIC_FRAMES = 24            # dynamic_frames: 720p frames (cli run: 120)
+DYNAMIC_FRAMES = 16            # dynamic_frames: 720p frames (cli run: 120)
 FLEET_STREAMS = 8              # fleet: bench.py's _fleet_bench
 FLEET_T = 24                   # fleet: scan steps a step_batch call
-FLEET_TIMED = 2                # fleet: timed step_batch calls (bench.py: 5)
+FLEET_TIMED = 1                # fleet: timed step_batch calls (bench.py: 5)
 FLEET_SMALL_FRAMES = 14        # fleet_small: tests/test_parallel.py's
 FLEET_MESH_TIMED = 1           # fleet_mesh: timed step_batch calls a fleet
+FLEET_MESH_T = 12              # fleet_mesh: scan steps a 720p call (fleet: 24)
 #                                (cut from 2 for the script's time limit)
 # fleet_mesh at 720p, the first 3 scan steps: 1.5 x the 9.64e-5 m measured
 # on an H100 (scripts/torch_mesh_split.py: the tracker's batched arithmetic
@@ -265,6 +281,9 @@ PARITY_FRAMES = 120            # parity: 424x240, seed 0, as the cached cell
 PARITY_CACHE = os.path.join(
     ROOT, "parity_sweep", "oracle_cache",
     "oracle_424x240_seed0_f480_59748861b52657b3.npz")
+SWEEP_FRAMES = 120             # sweep: 640x480, one seed, both modes
+SWEEP_REFERENCE_CELL = os.path.join(
+    ROOT, "parity_sweep", "cell_f120_640x480_anchored.json")
 # tests/test_ba_oracle.py::test_matches_f64_oracle_shipped_scale: the
 # problem (tests/test_ba.py::make_problem's arguments) and its bounds
 BA_SHIPPED = dict(seed=20, w=8, l=512, noise_px=0.2, drop_frac=0.15)
@@ -1554,15 +1573,16 @@ def phase_fleet_small(device="cuda"):
     check_launches("fleet_small", launches)
 
 
-def fleet_batch(frames, i0: int, streams: int, device="cuda"):
-    """bench.py's _fleet_bench input: FLEET_T scan steps of ``streams``
+def fleet_batch(frames, i0: int, streams: int, device="cuda",
+                steps: int = FLEET_T):
+    """bench.py's _fleet_bench input: ``steps`` scan steps of ``streams``
     720p streams, stream s offset by s frames in the 6-frame cycle, on the
     card; stamps (i0 + t) / 30."""
     idx = [[(i0 + t + s) % len(frames) for s in range(streams)]
-           for t in range(FLEET_T)]
+           for t in range(steps)]
     gs = torch.from_numpy(np.stack([[frames[j][0] for j in r] for r in idx]))
     ds = torch.from_numpy(np.stack([[frames[j][1] for j in r] for r in idx]))
-    ts = np.repeat(((i0 + np.arange(FLEET_T)) / 30.0)[:, None], streams, 1)
+    ts = np.repeat(((i0 + np.arange(steps)) / 30.0)[:, None], streams, 1)
     return gs.to(device), ds.to(device), ts
 
 
@@ -1717,7 +1737,7 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
     both on keyed_draws: (a) fleet_small's 2 streams at 160x120, 14
     frames, through step and then step_batch: positions within 1e-6 m,
     keyframe flags equal; (b) SLAMConfig() at 720p, 8 streams as
-    fleet_batch, step_batch calls of FLEET_T scan steps, one warm-up call
+    fleet_batch, step_batch calls of FLEET_MESH_T scan steps, one warm-up call
     and FLEET_MESH_TIMED timed ones (host clock, synchronised) a fleet,
     then run_ba: per stream, positions within tests/test_parallel.py's
     bounds (all 2 cm, 0.5 deg; its first 3 frames' 1e-5 m becomes
@@ -1752,7 +1772,7 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
         np.array_equal(tb1[..., 8], tb2[..., 8]))
     # (b) full width
     b = FLEET_STREAMS
-    calls = [fleet_batch(frames, k * FLEET_T, b, device)
+    calls = [fleet_batch(frames, k * FLEET_MESH_T, b, device, FLEET_MESH_T)
              for k in range(1 + FLEET_MESH_TIMED)]
     sync(device)
     cards = sorted({d.index for d in mesh.devices}) if device == "cuda" \
@@ -1771,11 +1791,11 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
             sync(device)
             per_call.append(time.perf_counter() - t0)
         launches = dict(kernels.launches)
-        costs = fleet.run_ba(float(len(calls) * FLEET_T - 1) / 30.0)
+        costs = fleet.run_ba(float(len(calls) * FLEET_MESH_T - 1) / 30.0)
         st = fleet.stats()
         runs[name] = dict(
             telems=torch.cat(telems).cpu().numpy(), launches=launches,
-            fps=FLEET_MESH_TIMED * FLEET_T * b / sum(per_call[1:]),
+            fps=FLEET_MESH_TIMED * FLEET_MESH_T * b / sum(per_call[1:]),
             ms_per_call=[x * 1e3 for x in per_call],
             costs=costs.cpu().numpy(), keyframes=st["keyframes"],
             peak_mem_gb=[torch.cuda.max_memory_allocated(c) / 1e9
@@ -1788,7 +1808,7 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
     ang = float(np.degrees(2 * np.arccos(np.clip(dots, -1, 1))).max())
     kf_diff = int(np.abs(np.asarray(two["keyframes"])
                          - np.asarray(one["keyframes"])).max())
-    steps = len(calls) * FLEET_T
+    steps = len(calls) * FLEET_MESH_T
     emit("fleet_mesh", mesh=[str(d) for d in mesh.devices],
          distinct_cards=len(set(mesh.devices)),
          small=dict(frames=n, streams=2, step_err_m=small_step_err,
@@ -2122,7 +2142,10 @@ def phase_parity(device="cuda"):
     """cli parity at 424x240 on 120 frames, seed 0, anchored (the default):
     the port's ATE must be below the oracle's, the reference's claim for
     its anchored cells (parity_sweep/sweep.json); whether the oracle's ATE
-    equals the cached oracle trajectory's is printed, not gated.  Then
+    equals the cached oracle trajectory's is printed, not gated, beside
+    the config fingerprint the cache file is keyed by and this run's: the
+    cached oracle comes from an older config than today's (the
+    fingerprints differ), so the two ATEs need not agree.  Then
     backend/ba.optimize on the card against oracle/ba_cpu.solve at the
     shipped scale, with test_ba_oracle.py's bounds."""
     try:
@@ -2150,6 +2173,10 @@ def phase_parity(device="cuda"):
     cached = np.load(PARITY_CACHE)
     cached_ate = round(float(trajectory.ate_rmse(
         cached["t"][:PARITY_FRAMES], gt_t)), 5)
+    cache_fp = os.path.splitext(PARITY_CACHE)[0].rsplit("_", 1)[1]
+    base = SLAMConfig()
+    run_fp = parity_sweep.cfg_fingerprint(
+        base.replace(camera=base.camera.scaled(424, 240)))
     # the window BA at the shipped scale, priors off
     problem, k = ba_window_problem(**BA_SHIPPED)
     cfg_ba = dataclasses.replace(
@@ -2177,6 +2204,8 @@ def phase_parity(device="cuda"):
          oracle_ba_rounds=run["oracle_ba_rounds"],
          cached_oracle_ate_m=cached_ate,
          oracle_equals_cache=cached_ate == run["oracle_ate_m"],
+         cache_fingerprint=cache_fp, config_fingerprint=run_fp,
+         fingerprints_match=cache_fp == run_fp,
          launches=launches, ba_problem=BA_SHIPPED,
          ba_final_cost=float(got.final_cost),
          ba_initial_cost=float(got.initial_cost),
@@ -2200,6 +2229,50 @@ def phase_parity(device="cuda"):
     return launches
 
 
+def phase_sweep(device="cuda"):
+    """evaluation/parity_sweep.main at 640x480, one seed, 120 frames, both
+    modes, into a fresh build/sweep_<device>/: the anchored cell's mean
+    ATE at most the oracle's, both cells with the reference cell's keys
+    plus device and power_limit, B1 and B2 once a frame of each run."""
+    out_dir = os.path.join(ROOT, "build", f"sweep_{device}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = parity_sweep.main([
+            "--device", device, "--res-list", "640x480", "--seeds", "1",
+            "--frames-list", str(SWEEP_FRAMES), "--out", out_dir])
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rc != 0:
+        fail(f"sweep: parity_sweep.main returned {rc}")
+    with open(SWEEP_REFERENCE_CELL) as f:
+        want_keys = set(json.load(f)) | {"device", "power_limit"}
+    cells = {}
+    for mode in parity_sweep.MODES:
+        with open(os.path.join(out_dir, f"cell_f{SWEEP_FRAMES}_640x480_"
+                               f"{mode}.json")) as f:
+            cells[mode] = json.load(f)
+    emit("sweep", frames=SWEEP_FRAMES, seconds=seconds, launches=launches,
+         cells={m: {k: v for k, v in c.items() if k != "provenance"}
+                for m, c in cells.items()})
+    for mode, cell in cells.items():
+        if set(cell) != want_keys:
+            fail(f"sweep: {mode} cell keys {sorted(cell)} are not the "
+                 f"reference's {sorted(want_keys)}")
+    anchored = cells["anchored"]
+    if not anchored["tpu_ate_mean_m"] <= anchored["oracle_ate_mean_m"]:
+        fail(f"sweep: anchored ATE {anchored['tpu_ate_mean_m']} m above the "
+             f"oracle's {anchored['oracle_ate_mean_m']} m")
+    runs = 2 * SWEEP_FRAMES
+    if device == "cuda" and any(launches.get(name, 0) != runs
+                                for name in kernels.SOURCES):
+        fail(f"sweep: launches {launches} for 2 runs of {SWEEP_FRAMES} "
+             "frames")
+    return launches
+
+
 def main() -> None:
     name, smi_line = phase_device()
     phase_build()
@@ -2215,6 +2288,7 @@ def main() -> None:
     phase_snapshot()
     tools_launches = phase_tools()
     parity_launches = phase_parity()
+    sweep_launches = phase_sweep()
     phase_place_frames(cfg)
     bench_launches = phase_bench(cfg)
     phase_yolo()
@@ -2231,10 +2305,12 @@ def main() -> None:
         r["train_vocab_launches"] = vocab_launches.get(r["name"], 0)
         r["tools_launches"] = tools_launches.get(r["name"], 0)
         r["parity_launches"] = parity_launches.get(r["name"], 0)
+        r["sweep_launches"] = sweep_launches.get(r["name"], 0)
         r["bench_launches"] = bench_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "fleet_launches", "fleet_mesh_launches", "train_vocab_launches",
-            "tools_launches", "parity_launches", "bench_launches",
+            "tools_launches", "parity_launches", "sweep_launches",
+            "bench_launches",
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

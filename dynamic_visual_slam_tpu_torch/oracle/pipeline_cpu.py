@@ -69,6 +69,8 @@ class OracleSLAM:
         self._last_ba_t: Optional[float] = None
         self._t0: Optional[float] = None
         self.ba_rounds = 0
+        # frames whose F estimate raised in OpenCV (taken as no inliers)
+        self.fm_errors = 0
 
     # ------------------------------------------------------------------
     def process(self, gray: np.ndarray, depth_m: np.ndarray,
@@ -115,9 +117,16 @@ class OracleSLAM:
                                  np.float32)
                 prv = np.asarray([p_uv[m.trainIdx] for m in matches],
                                  np.float32)
-                _, inl = cv2.findFundamentalMat(
-                    prv, cur, cv2.FM_RANSAC,
-                    cfg.ransac.fm_threshold_px, 0.99)
+                try:
+                    _, inl = cv2.findFundamentalMat(
+                        prv, cur, cv2.FM_RANSAC,
+                        cfg.ransac.fm_threshold_px, 0.99)
+                except cv2.error:
+                    # OpenCV 4.13's RANSAC fails an internal assertion on
+                    # some inputs that other versions estimate; a failed
+                    # estimate is one with no inliers, as when F is None
+                    inl = None
+                    self.fm_errors += 1
                 inl = (inl.ravel() > 0) if inl is not None else \
                     np.zeros(len(matches), bool)
                 n_inl = int(inl.sum())

@@ -1,17 +1,19 @@
 """The port's bench (``dynamic_visual_slam_tpu_torch/bench.py``) against the
 reference's own bench functions (the root ``bench.py``), on the CPU at
-160x120 (SLAMConfig's defaults, the camera of tests/test_torch_fleet.py),
-the bench's 6-frame cycle (``bench.native_frames``), batches of 24,
-``sync_every`` 3, 24 timed frames: stage 1 against a reference
-``SLAMSystem`` driven as the reference's ``_run`` drives it, and stage 3,
-``_place_bench``, against the reference's ``_place_bench``.  The fleet's
-stage is in tests/test_torch_bench_fleet.py (its reference compile takes
-about a minute of its own).
+160x120 (SLAMConfig's defaults, the camera of tests/test_torch_fleet.py,
+BA every 0.7 s of input time instead of 2 s), the bench's 6-frame cycle
+(``bench.native_frames``), batches of 24, ``sync_every`` 3, 24 timed
+frames: stage 1, after 48 warm-up frames instead of 144, against a
+reference ``SLAMSystem`` driven as the reference's ``_run`` drives it, and
+stage 3, ``_place_bench``, against the reference's ``_place_bench``.  The
+fleet's stage is in tests/test_torch_bench_fleet.py (its reference compile
+takes about a minute of its own).
 
 Tolerances, and why:
 - counts set by input time alone are equal: stage 1's
   ``ba_runs_in_timed_window`` (the BA tick fires on the last stamp of a
-  batch 2 s after the one before) and ``timed_frames``;
+  batch 0.7 s after the one before, so once a batch of 0.8 s) and
+  ``timed_frames``;
 - stage 3 on the reference's own draws (the port's ``SLAMSystem`` gets
   ``torch_parity.JaxSampler``): ``place_keyframes`` within 1 of the
   reference's, tests/test_parallel.py's keyframe bound (a F-RANSAC
@@ -20,11 +22,12 @@ Tolerances, and why:
   needs a BoW candidate ten keyframes back, which a one-keyframe
   difference does not create on this cycle);
 - stage 1's keyframes within 1 of the reference's, for the same reason.
-Measured: 17 keyframes in stage 1 and 11 in stage 3 on both sides, one BA
+Measured: 8 keyframes in stage 1 and 11 in stage 3 on both sides, one BA
 round in the timed window, no loop check (the cycle's 11 keyframes leave
 no candidate ten keyframes back).
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -43,9 +46,10 @@ from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 torch.set_num_threads(2)
 CAM = CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
                    cx=79.5, cy=59.5)
-CFG = SLAMConfig().replace(camera=CAM)
+CFG = SLAMConfig().replace(camera=CAM, ba=dataclasses.replace(
+    SLAMConfig().ba, period_s=0.7))
 PCFG = PSLAMConfig.from_dict(CFG.to_dict())
-BATCH, SYNC_EVERY, N_TIMED = 24, 3, 24
+BATCH, SYNC_EVERY, N_TIMED, WARMUP = 24, 3, 24, 48
 
 
 @pytest.fixture(scope="module")
@@ -53,9 +57,10 @@ def np_frames():
     return bench.native_frames(PCFG)
 
 
-def test_headline_counts_match_a_reference_system(np_frames):
+def test_headline_counts_match_a_reference_system(np_frames, monkeypatch):
     """Stage 1: the port's ``_headline`` against the reference's
     SLAMSystem driven as the reference's ``_run`` drives it."""
+    monkeypatch.setattr(bench, "WARMUP_FRAMES", WARMUP)
     _, fps, got = bench._headline(PCFG, np_frames, BATCH, SYNC_EVERY,
                                   N_TIMED, "cpu")
     ref = JaxSLAM(CFG, ba_async=True, enable_place_recognition=False,

@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX, optax, anything of the JAX package or the reference's root
-``bench`` module; its entry points (``bench`` and ``cli bench`` among
-them) default to the card and raise without one; its kernels are built without fast math; and its
+"""The PyTorch port stands alone: no module of it, not chip_smoke.py and
+not its evaluation scripts (``scripts/torch_parity_sweep.py``,
+``torch_loop720p.py``, ``torch_ood_eval.py``) imports JAX, optax, anything
+of the JAX package or the reference's root ``bench`` module; its entry
+points (``bench``, ``cli bench`` and the three evaluations among them)
+default to the card and raise without one; its kernels are built without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
 query, loop verification, the pose-graph loop correction, the detector's
 network and NMS, the fleet's step, step_batch, BA and detector) never read
@@ -25,6 +27,8 @@ from dynamic_visual_slam_tpu_torch import bench, cli, convert, kernels
 from dynamic_visual_slam_tpu_torch.backend import ba, mapping
 from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
+from dynamic_visual_slam_tpu_torch.evaluation import (loop720p, ood,
+                                                      parity_sweep)
 from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.models import yolov8
@@ -41,6 +45,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dynamic_visual_slam_tpu_torch"
 # "bench": the reference's root benchmark, which imports the JAX package
 FORBIDDEN = {"jax", "jaxlib", "optax", "dynamic_visual_slam_tpu", "bench"}
+EVAL_SCRIPTS = ("torch_parity_sweep.py", "torch_loop720p.py",
+                "torch_ood_eval.py")
 
 
 def _port_files():
@@ -74,7 +80,9 @@ def test_no_jax_or_reference_imports():
                 "models/convert_ultralytics.py", "place/pretrain.py",
                 "semantic/train.py", "native/__init__.py", "native/build.py",
                 "utils/serve.py", "oracle/ba_cpu.py",
-                "oracle/pipeline_cpu.py", "bench.py"):
+                "oracle/pipeline_cpu.py", "bench.py",
+                "evaluation/__init__.py", "evaluation/parity_sweep.py",
+                "evaluation/loop720p.py", "evaluation/ood.py"):
         assert PORT / new in files, new
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_top_level(f))
                                             & FORBIDDEN)
@@ -115,6 +123,24 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
         bench.main()
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["bench"])
+
+
+def test_evaluation_scripts_import_only_the_port_and_default_to_the_card(
+        monkeypatch, tmp_path):
+    for name in EVAL_SCRIPTS:
+        path = ROOT / "scripts" / name
+        names = set(_imported_top_level(path))
+        assert "dynamic_visual_slam_tpu_torch" in names, name
+        assert not names & FORBIDDEN, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="cuda"):
+        parity_sweep.main(["--out", str(out)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop720p.main(["--out", str(out / "loop.json")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ood.main([])
+    assert not out.exists()
 
 
 def test_fleet_and_state_io_default_to_the_card(monkeypatch, tmp_path):

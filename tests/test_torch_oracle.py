@@ -161,3 +161,29 @@ def test_oracle_slam_reproduces_the_cached_prefix(port_oracle):
                                   cached["kf_cum"][:N_FRAMES])
     np.testing.assert_array_equal(port_oracle["ba_cum"],
                                   cached["ba_cum"][:N_FRAMES])
+
+
+def test_a_raising_f_estimate_is_one_without_inliers(frames_424,
+                                                      monkeypatch):
+    """OpenCV 4.13.0's findFundamentalMat fails an internal assertion on
+    some inputs (a few frames of the 480-frame parity runs): the oracle
+    takes that frame as one whose estimate failed, as when F is None,
+    counts it in ``fm_errors`` and runs on."""
+    import cv2
+    real = cv2.findFundamentalMat
+    calls = []
+
+    def flaky(*args, **kwargs):
+        calls.append(len(calls))
+        if len(calls) == 5:
+            raise cv2.error("OpenCV(4.13.0) matrix.cpp:764: error: (-215)")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cv2, "findFundamentalMat", flaky)
+    cfg = SLAMConfig().replace(camera=SLAMConfig().camera.scaled(424, 240))
+    orc = OracleSLAM(cfg, run_ba=True)
+    out = [orc.process(g, d, ts) for g, d, _, _, ts in frames_424[:10]]
+    assert orc.fm_errors == 1 and len(calls) == 9
+    assert not out[5].tracking_ok and out[5].n_inliers == 0
+    assert all(f.tracking_ok for f in out[1:5] + out[6:])
+    np.testing.assert_array_equal(out[5].t_wc, out[4].t_wc)
