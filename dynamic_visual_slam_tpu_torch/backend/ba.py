@@ -26,6 +26,7 @@ from dynamic_visual_slam_tpu_torch.core import lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.core.containers import topk_stable
 from dynamic_visual_slam_tpu_torch.ops import linalg_small as ls
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 
 class BAProblem(NamedTuple):
@@ -323,10 +324,15 @@ def apply_result(state, result: BAResult, window_slots, lm_slots,
 
 
 def run_ba(cfg, k: Intrinsics, state, max_landmarks: int = 512):
-    """One BA round on the current window: extract → optimize → write back."""
-    problem, window_slots, lm_slots = extract_window(cfg, state, max_landmarks)
-    result = optimize(k, problem, cfg.ba)
-    new_state = apply_result(state, result, window_slots, lm_slots)
+    """One BA round on the current window: extract → optimize → write back
+    (spans ``ba.window``, ``ba.optimize``, ``ba.apply``)."""
+    with TRACER.span("ba.window"):
+        problem, window_slots, lm_slots = extract_window(cfg, state,
+                                                         max_landmarks)
+    with TRACER.span("ba.optimize"):
+        result = optimize(k, problem, cfg.ba)
+    with TRACER.span("ba.apply"):
+        new_state = apply_result(state, result, window_slots, lm_slots)
     return new_state, result
 
 

@@ -25,6 +25,7 @@ from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.frontend.tracker import (KeyframeBlock,
                                                              points_in_boxes)
 from dynamic_visual_slam_tpu_torch.ops import hamming, linalg_small as ls
+from dynamic_visual_slam_tpu_torch.utils.profiling import traced
 
 UNLABELED = 0  # category id for observations outside every detection bbox
 INT32_MAX = 2 ** 31 - 1
@@ -281,6 +282,7 @@ def prune(cfg: SLAMConfig, lm: LandmarkMap, now: torch.Tensor) -> LandmarkMap:
 # Keyframe ingestion
 # ---------------------------------------------------------------------------
 
+@traced("insert")
 def insert_keyframe(cfg: SLAMConfig, state: MapState, kf: KeyframeBlock,
                     det: Detections, filtered_mask: torch.Tensor
                     ) -> Tuple[MapState, dict]:

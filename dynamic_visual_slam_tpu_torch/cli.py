@@ -29,15 +29,18 @@ processes), ``train-vocab`` its vocabulary npz; both packages read both.
 keyframe trajectories (TUM format), landmark and trajectory PLYs, and the
 stats JSON (the system's counters, ``fps``, ``wall_s``, ``landmarks``,
 per-stage timings, ``ate_rmse_m`` on synthetic sources), and with
-``--trace`` a chrome trace of the per-frame ``process`` calls
-(``trace.json``, from the native runtime, which ``g++`` builds at first use;
-without it the command exits with code 2).  ``--serve [PORT]`` serves a
-live view on 127.0.0.1 while it runs (``utils/serve.LiveView``), refreshed
-every ``--serve-every`` frames; ``DVS_SERVE_HOLD_S`` keeps it up that many
-seconds after the run.  ``--save-state``
-writes a checkpoint of the final state and ``--resume`` starts from one
-(a missing checkpoint or another config exits with code 2).  ``main(argv,
-out=...)`` also hands an in-process caller the run's system.
+``--trace`` a chrome trace (``trace.json``, ``utils/profiling.TRACER``'s
+session): on the per-frame path a "frame" span a frame with the layer and
+stage spans of ``process`` inside it, and under ``otherData`` the whole
+session's spans and counters (``--batch``'s and ``--threaded``'s calls,
+the threaded runner's ``queue.wait`` and ``queue.dropped``).
+``--serve [PORT]`` serves a live view on 127.0.0.1 while it runs
+(``utils/serve.LiveView``), refreshed every ``--serve-every`` frames;
+``DVS_SERVE_HOLD_S`` keeps it up that many seconds after the run.
+``--save-state`` writes a checkpoint of the final state and ``--resume``
+starts from one (a missing checkpoint or another config exits with code
+2).  ``main(argv, out=...)`` also hands an in-process caller the run's
+system.
 ``parity`` runs the port's pipeline and the CPU oracle (OpenCV ORB and PnP,
 f64 scipy BA) on the same frames and writes ``parity.json``; its ``tpu_``
 keys, kept from the reference's reports (``parity_sweep/``), name the
@@ -122,13 +125,9 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
               f"({int(slam.map_state.keyframes.count)} keyframes)",
               file=sys.stderr)
     timer = profiling.StageTimer()
-    tracer = None
-    if args.trace:
-        try:
-            tracer = profiling.make_tracer()
-        except RuntimeError as e:
-            print(f"error: --trace: {e}", file=sys.stderr)
-            return 2
+    tracer = profiling.TRACER if args.trace else None
+    if tracer:
+        tracer.enable()
 
     live = None
     if args.serve is not None:
@@ -140,6 +139,8 @@ def cmd_run(args, out: Optional[dict] = None) -> int:
         return _run_frames(args, cfg, slam, detector, timer, tracer, live,
                            out)
     finally:
+        if tracer:
+            tracer.disable()
         if live is not None:
             live.close()
 
@@ -148,7 +149,7 @@ def _run_frames(args, cfg, slam, detector, timer, tracer, live,
                 out: Optional[dict]) -> int:
     from dynamic_visual_slam_tpu_torch.backend.mapping import Detections
     from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory, tum
-    from dynamic_visual_slam_tpu_torch.utils import viz
+    from dynamic_visual_slam_tpu_torch.utils import profiling, viz
 
     if args.source == "synthetic":
         frames = synthetic.generate_sequence(cfg.camera, args.frames,
@@ -276,12 +277,8 @@ def _run_frames(args, cfg, slam, detector, timer, tracer, live,
             if detector is not None:
                 with timer.stage("detector"):
                     det = _detect(np.asarray(gray), float(ts))
-            if tracer:
-                tracer.begin("frame")
-            with timer.stage("frame"):
+            with profiling.TRACER.span("frame"), timer.stage("frame"):
                 slam.process(gray, depth, ts, detections=det)
-            if tracer:
-                tracer.end("frame")
             if debug_every and n % debug_every == 0:
                 # annotated feature image, the reference's per-frame
                 # /feature_detector/features_image (frontend.cpp:1229-1232)
@@ -314,7 +311,8 @@ def _run_frames(args, cfg, slam, detector, timer, tracer, live,
     viz.trajectory_to_ply(os.path.join(args.out_dir, "trajectory.ply"),
                           ts_arr)
     if tracer:
-        tracer.dump_chrome_trace(os.path.join(args.out_dir, "trace.json"))
+        profiling.write_chrome_trace(tracer.disable(),
+                                     os.path.join(args.out_dir, "trace.json"))
     if args.save_state:
         # np.savez appends .npz when absent; normalise so the printed path
         # and a later --resume both name the file written

@@ -29,6 +29,7 @@ from dynamic_visual_slam_tpu_torch.ops import descriptors as desc_k
 from dynamic_visual_slam_tpu_torch.ops import hamming
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.ops.fields import fast_score_batch
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 HALF_PATCH = 15
 SAMPLE_PAD = 19   # covers the rotated-BRIEF reach (≤ |13|·√2)
@@ -204,10 +205,14 @@ def extract_batch(imgs: torch.Tensor, cfg: ORBConfig) -> Keypoints:
 
     One B1 launch scores all B × n_levels pyramid levels, one B2 launch
     describes all B × max_keypoints keypoint slots; the rest is batched
-    tensor code on the images' device."""
-    levels = imops.build_pyramid(imgs.to(torch.float32), cfg.n_levels,
-                                 cfg.scale_factor)
-    return extract_levels(levels, cfg)
+    tensor code on the images' device.  Spans: ``extract``, and inside it
+    ``extract.pyramid``, ``extract.b1`` (kernel B1, then each level's
+    detection) and ``extract.b2`` (kernel B2)."""
+    with TRACER.span("extract"):
+        with TRACER.span("extract.pyramid"):
+            levels = imops.build_pyramid(imgs.to(torch.float32),
+                                         cfg.n_levels, cfg.scale_factor)
+        return extract_levels(levels, cfg)
 
 
 class DescriptorInputs(NamedTuple):
@@ -232,8 +237,9 @@ def detect_batch(levels, scores, cfg: ORBConfig):
     quotas = features_per_level(cfg)
     parts, blur_levels, raw_levels = [], [], []
     for lvl, (lv, score, quota) in enumerate(zip(levels, scores, quotas)):
-        ys, xs, resp = detect_level(score, quota, float(cfg.ini_th_fast),
-                                    float(cfg.min_th_fast))
+        with TRACER.span("extract.b1"):
+            ys, xs, resp = detect_level(score, quota, float(cfg.ini_th_fast),
+                                        float(cfg.min_th_fast))
         blurred = torch.clamp(torch.round(imops.gaussian_blur(lv, 7, 2.0)),
                               0.0, 255.0)
         blur_levels.append(imops.reflect_pad(blurred, SAMPLE_PAD).contiguous())
@@ -273,8 +279,11 @@ def extract_levels(levels, cfg: ORBConfig) -> Keypoints:
     levels = [lv.contiguous() for lv in levels]
     b = levels[0].shape[0]
     k_cap = cfg.max_keypoints
-    cat, inputs = detect_batch(levels, fast_score_batch(levels), cfg)
-    bits, m10, m01 = desc_k.descriptors_moments(*inputs)
+    with TRACER.span("extract.b1"):
+        scores = fast_score_batch(levels)
+    cat, inputs = detect_batch(levels, scores, cfg)
+    with TRACER.span("extract.b2"):
+        bits, m10, m01 = desc_k.descriptors_moments(*inputs)
     bits = bits.reshape(b, k_cap, 256)
     return Keypoints(
         uv=cat["uv"], response=cat["response"],

@@ -21,6 +21,10 @@ torch cannot reproduce.  ``sample_indices`` draws them from an explicit
 ``torch.Generator`` on the data's device; both estimators also accept the
 sample indices directly (``samples=``), which is how the tests feed both
 packages the same draws.
+
+Counters (``utils/profiling``): ``ransac.hypotheses.fm`` and
+``ransac.hypotheses.pnp``, the hypotheses each call scores, every frame
+of a batch counted (a PnP's prior pose and identity included).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from dynamic_visual_slam_tpu_torch.core import containers, lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.ops import linalg_small as ls
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 
 def sample_indices(generator: Optional[torch.Generator], n_hyp: int,
@@ -136,6 +141,7 @@ def fundamental_ransac(p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor,
     cp2 = containers.bgather(p2, order, nb)
     if samples is None:
         samples = sample_indices(generator, n_hyp, 8, count)
+    TRACER.count("ransac.hypotheses.fm", samples.shape[:-1].numel())
     s1 = containers.bgather(cp1, samples, nb)             # (..., N, 8, 2)
     s2 = containers.bgather(cp2, samples, nb)
     fs = _eight_point_weighted(s1, s2, torch.ones_like(s1[..., 0]))
@@ -272,6 +278,7 @@ def pnp_ransac(k: Intrinsics, xyz: torch.Tensor, uv: torch.Tensor,
         rs = torch.cat([rs, lie.quat_to_mat(prior_q)[..., None, :, :], eye], -3)
         ts = torch.cat([ts, prior_t[..., None, :],
                         torch.zeros_like(ts[..., :1, :])], -2)
+    TRACER.count("ransac.hypotheses.pnp", rs.shape[:-2].numel())
     errs = _reproj_errors(k, rs, ts, xyz[..., None, :, :], uv[..., None, :, :])
     inl = (errs < threshold) & mask[..., None, :]
     scores = inl.sum(-1)

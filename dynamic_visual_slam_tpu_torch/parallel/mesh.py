@@ -56,6 +56,7 @@ from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
 from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.pipeline.slam import _to_host
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 FleetSampler = Callable[[str, torch.Tensor, torch.Tensor, int, int,
                          torch.Tensor], torch.Tensor]
@@ -358,9 +359,11 @@ class _Shard:
 
     def run_ba(self, now: float) -> torch.Tensor:
         new, res = ba_mod.run_ba_streams(self.cfg, self._k, self.map_states)
-        t_now = torch.full((), now, dtype=torch.float32, device=self.device)
-        self.map_states = new._replace(landmarks=mapping.prune_streams(
-            self.cfg, new.landmarks, t_now))
+        with TRACER.span("ba.prune"):
+            t_now = torch.full((), now, dtype=torch.float32,
+                               device=self.device)
+            self.map_states = new._replace(landmarks=mapping.prune_streams(
+                self.cfg, new.landmarks, t_now))
         self.ba_costs = res.final_cost
         return res.final_cost
 
@@ -477,17 +480,21 @@ class SLAMFleet:
         inserts in all.  A dropped frame keeps is_keyframe in the telemetry
         (the tracker flagged and anchored it) though the map never stored
         it.  BA cadence is evaluated once per call."""
-        parts = _split((grays, depths, stamps, detections), self.mesh, 1)
-        telems = _gather(self._run(_Shard.step_batch, parts),
-                         self.mesh.devices[0], 1)
-        self._ba_tick(stamps, auto_ba)
-        return telems
+        with TRACER.entry("step_batch", grays.shape[0] * grays.shape[1],
+                          self.mesh.devices[0]):
+            parts = _split((grays, depths, stamps, detections), self.mesh, 1)
+            telems = _gather(self._run(_Shard.step_batch, parts),
+                             self.mesh.devices[0], 1)
+            self._ba_tick(stamps, auto_ba)
+            return telems
 
     def run_ba(self, now: float = 0.0) -> torch.Tensor:
         """BA + prune on every stream, one batched program a shard → (B,)
         final costs (on ``devices[0]``)."""
-        costs = _gather(self._run(_Shard.run_ba, [(now,)] * len(self.shards)),
-                        self.mesh.devices[0])
+        with TRACER.span("ba"):
+            costs = _gather(self._run(_Shard.run_ba,
+                                      [(now,)] * len(self.shards)),
+                            self.mesh.devices[0])
         self.ba_runs += 1
         return costs
 

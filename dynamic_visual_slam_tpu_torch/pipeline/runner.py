@@ -21,8 +21,13 @@ the backend, paired by message_filters::ApproximateTime
                      compute (the detector's network runs on the card from
                      its own thread).
 
-Frames cross the queue as bytes (u8 gray + u16 depth-mm), the same wire
-discipline as the reference's serialized Image messages.
+Frames cross the queue as bytes (u8 gray + u16 depth in the camera's
+units, millimetres by default), the same wire discipline as the reference's
+serialized Image messages.
+
+While the tracer (``utils/profiling.TRACER``) is on, each processed frame
+adds a ``queue.wait`` span, from its push to its pop, and the run's dropped
+frames are counted under ``queue.dropped``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 
 from dynamic_visual_slam_tpu_torch.pipeline.slam import SLAMSystem
 from dynamic_visual_slam_tpu_torch.pipeline.sync import ApproximateTimeSync
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 
 class _PyQueue:
@@ -80,10 +86,13 @@ def _make_queue(depth: int, max_item: int):
     return _PyQueue(depth=depth)
 
 
-def _pack_frame(gray: np.ndarray, depth_m: np.ndarray) -> bytes:
+def _pack_frame(gray: np.ndarray, depth_m: np.ndarray,
+                depth_scale: float = 1e-3) -> bytes:
+    """u8 gray + u16 depth in units of ``depth_scale`` metres (the
+    camera's, which the tracker reads uint16 depth in)."""
     g8 = np.ascontiguousarray(gray.astype(np.uint8))
     d16 = np.ascontiguousarray(
-        np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16))
+        np.clip(depth_m * (1.0 / depth_scale), 0, 65535).astype(np.uint16))
     return g8.tobytes() + d16.tobytes()
 
 
@@ -120,13 +129,17 @@ class ThreadedPipeline:
         io_done = threading.Event()
         det_done = threading.Event()
         n_in = 0
+        pushed: Dict[float, Any] = {}     # stamp → push time, when tracing
 
         def io_thread():
             nonlocal n_in
             for i, (gray, depth_m, ts) in enumerate(frames):
                 if limit is not None and i >= limit:
                     break
-                payload = _pack_frame(np.asarray(gray), np.asarray(depth_m))
+                payload = _pack_frame(np.asarray(gray), np.asarray(depth_m),
+                                      cfg.camera.depth_scale)
+                if TRACER.on:
+                    pushed[float(ts)] = TRACER.now()
                 q_frames.push(float(ts), payload)
                 if q_det_in is not None:
                     q_det_in.push(float(ts), payload)
@@ -191,6 +204,8 @@ class ThreadedPipeline:
                     break
                 continue
             ts, payload = item
+            if TRACER.on:
+                TRACER.add_span("queue.wait", pushed.pop(ts, None))
             g8, d16 = _unpack_frame(payload, h, w)
             if self.detector:
                 sync.push_a(ts, (g8, d16))
@@ -243,6 +258,7 @@ class ThreadedPipeline:
         wall = time.perf_counter() - t0
         for t in threads:
             t.join(timeout=5.0)
+        TRACER.count("queue.dropped", getattr(q_frames, "dropped", 0))
         self.stats = dict(
             frames_in=n_in, frames_processed=n_processed,
             wall_s=round(wall, 3),

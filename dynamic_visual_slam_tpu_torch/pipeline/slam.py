@@ -48,6 +48,7 @@ from dynamic_visual_slam_tpu_torch.frontend import orb, ransac, tracker
 from dynamic_visual_slam_tpu_torch.ops import hamming
 from dynamic_visual_slam_tpu_torch.place import bow
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER, traced
 
 
 def resolve_device(device) -> torch.device:
@@ -105,6 +106,7 @@ def _seq(x, device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.int64, device=device)
 
 
+@traced("place.apply")
 def apply_loop(cfg: SLAMConfig, tstate: tracker.TrackerState,
                mstate: mapping.MapState, q_pnp: torch.Tensor,
                t_pnp: torch.Tensor, cand_seq, entry_seq):
@@ -146,6 +148,7 @@ def apply_loop(cfg: SLAMConfig, tstate: tracker.TrackerState,
             mstate._replace(keyframes=kdb, landmarks=lm))
 
 
+@traced("place.apply")
 def apply_loop_pgo(cfg: SLAMConfig, tstate: tracker.TrackerState,
                    mstate: mapping.MapState, q_pnp: torch.Tensor,
                    t_pnp: torch.Tensor, cand_seq, entry_seq):
@@ -183,6 +186,7 @@ def apply_loop_pgo(cfg: SLAMConfig, tstate: tracker.TrackerState,
             mstate._replace(keyframes=kdb, landmarks=lm))
 
 
+@traced("place.apply")
 def apply_reloc(tstate: tracker.TrackerState, q_pnp: torch.Tensor,
                 t_pnp: torch.Tensor, q_froz: torch.Tensor,
                 t_froz: torch.Tensor) -> tracker.TrackerState:
@@ -203,6 +207,7 @@ def seeded_sampler(seed: int, device) -> tracker.Sampler:
     return sampler
 
 
+@traced("place.verify")
 def verify_loop(cfg: SLAMConfig, k: Intrinsics, d1, uv1, m1, d2, uv2, m2,
                 xyz2, seed: int, sampler: Optional[tracker.Sampler] = None):
     """Geometric loop / relocalization verification of keyframe 1 against
@@ -211,6 +216,7 @@ def verify_loop(cfg: SLAMConfig, k: Intrinsics, d1, uv1, m1, d2, uv2, m2,
     → (F-RANSAC inliers, q_wc, t_wc of keyframe 1 from PnP, PnP inliers or
     0), all device tensors.  Draws: stages "loop_fm" and "loop_pnp" of
     ``sampler`` with frame id ``seed``, or a generator seeded with it."""
+    TRACER.count("place.verify.dispatched")
     if sampler is None:
         sampler = seeded_sampler(seed, d1.device)
     ids = torch.full((1,), seed, dtype=torch.int64)
@@ -238,6 +244,7 @@ def verify_loop(cfg: SLAMConfig, k: Intrinsics, d1, uv1, m1, d2, uv2, m2,
             torch.where(pnp.valid, pnp.n_inliers, 0))
 
 
+@traced("pipeline.read")
 def _to_host(groups: Sequence[Sequence[torch.Tensor]]) -> List[tuple]:
     """Groups of device tensors → the same groups of float32 numpy arrays,
     in ONE device-to-host transfer (the integers and flags read here are
@@ -370,24 +377,25 @@ class SLAMSystem:
         Returns this frame's FrameResult when sync_every == 1; otherwise the
         newest FrameResult emitted by this call (None if none).  Call
         finalize() after the last frame."""
-        if self._t0 is None:
-            self._t0 = timestamp
-        ts_rel = torch.tensor(timestamp - self._t0, dtype=torch.float32,
-                              device=self._dev)
-        self.tracker_state, out = tracker.track_step(
-            self.config, self.tracker_state, _as_tensor(gray, self._dev),
-            _as_tensor(depth_m, self._dev), ts_rel, self._sampler,
-            det=detections, filtered=self._filtered)
-        hold = self.sync_every > 1
-        emit = not hold or len(self._pending_out) + 1 > self.sync_every
-        telem, bundle = self._read(_telemetry(out), emit)
-        if telem[8] > 0.5:
-            self._insert_keyframe(out, detections, None)
-        self._pending_out.append((timestamp, out, telem, detections))
-        drained = self._emit(bundle, hold) if emit else []
-        self._ba_tick(timestamp - self._t0, timestamp)
-        self.stats["frames"] += 1
-        return drained[-1] if drained else None
+        with TRACER.entry("process", 1, self._dev):
+            if self._t0 is None:
+                self._t0 = timestamp
+            ts_rel = torch.tensor(timestamp - self._t0, dtype=torch.float32,
+                                  device=self._dev)
+            self.tracker_state, out = tracker.track_step(
+                self.config, self.tracker_state, _as_tensor(gray, self._dev),
+                _as_tensor(depth_m, self._dev), ts_rel, self._sampler,
+                det=detections, filtered=self._filtered)
+            hold = self.sync_every > 1
+            emit = not hold or len(self._pending_out) + 1 > self.sync_every
+            telem, bundle = self._read(_telemetry(out), emit)
+            if telem[8] > 0.5:
+                self._insert_keyframe(out, detections, None)
+            self._pending_out.append((timestamp, out, telem, detections))
+            drained = self._emit(bundle, hold) if emit else []
+            self._ba_tick(timestamp - self._t0, timestamp)
+            self.stats["frames"] += 1
+            return drained[-1] if drained else None
 
     def process_batch(self, grays, depths, timestamps,
                       detections: Optional[mapping.Detections] = None
@@ -399,25 +407,29 @@ class SLAMSystem:
         pending; finalize() flushes the tail."""
         timestamps = np.asarray(timestamps, np.float64)
         b = len(timestamps)
-        if self._t0 is None:
-            self._t0 = float(timestamps[0])
-        cfg = self.config
-        ts_rel = torch.as_tensor(timestamps - self._t0, dtype=torch.float32,
-                                 device=self._dev)
-        kps_b = orb.extract_batch(_as_tensor(grays, self._dev), cfg.orb)
-        self.tracker_state, outs = tracker.track_batch(
-            cfg, self.tracker_state, kps_b, _as_tensor(depths, self._dev),
-            ts_rel, self._sampler, dets=detections, filtered=self._filtered)
-        emit = len(self._pending_out) + 1 > max(1, self.sync_every)
-        telem, bundle = self._read(_telemetry(outs), emit)
-        for j in range(b):
-            if telem[j, 8] > 0.5:
-                self._insert_keyframe(outs, detections, j)
-        self._pending_out.append((list(timestamps), outs, telem, detections))
-        drained = self._emit(bundle, True) if emit else []
-        self._ba_tick(float(timestamps[-1]) - self._t0, float(timestamps[-1]))
-        self.stats["frames"] += b
-        return drained
+        with TRACER.entry("process_batch", b, self._dev):
+            if self._t0 is None:
+                self._t0 = float(timestamps[0])
+            cfg = self.config
+            ts_rel = torch.as_tensor(timestamps - self._t0,
+                                     dtype=torch.float32, device=self._dev)
+            kps_b = orb.extract_batch(_as_tensor(grays, self._dev), cfg.orb)
+            self.tracker_state, outs = tracker.track_batch(
+                cfg, self.tracker_state, kps_b, _as_tensor(depths, self._dev),
+                ts_rel, self._sampler, dets=detections,
+                filtered=self._filtered)
+            emit = len(self._pending_out) + 1 > max(1, self.sync_every)
+            telem, bundle = self._read(_telemetry(outs), emit)
+            for j in range(b):
+                if telem[j, 8] > 0.5:
+                    self._insert_keyframe(outs, detections, j)
+            self._pending_out.append((list(timestamps), outs, telem,
+                                      detections))
+            drained = self._emit(bundle, True) if emit else []
+            self._ba_tick(float(timestamps[-1]) - self._t0,
+                          float(timestamps[-1]))
+            self.stats["frames"] += b
+            return drained
 
     def _read(self, telem: torch.Tensor, emit: bool):
         """The call's one host transfer: the new telemetry, plus the pending
@@ -438,9 +450,11 @@ class SLAMSystem:
         """Fire a BA round if ba.period_s of input time has elapsed."""
         if self._last_ba_t is None:
             self._last_ba_t = ts_rel
-        if (ts_rel - self._last_ba_t >= self.config.ba.period_s
+        if not (ts_rel - self._last_ba_t >= self.config.ba.period_s
                 and (self._n_kf_host >= 2 or self.stats["frames"] >= 2)):
-            self._last_ba_t = ts_rel
+            return
+        self._last_ba_t = ts_rel
+        with TRACER.span("ba"):
             # a relocalization in flight froze the tracker pose at dispatch:
             # feedback now would be baked into the re-anchored pose as error
             if self.ba_feedback and self._pending_reloc is None:
@@ -449,10 +463,12 @@ class SLAMSystem:
             else:
                 self.map_state, res = ba_mod.run_ba(self.config, self._k,
                                                     self.map_state)
-            now = torch.tensor(ts_rel, dtype=torch.float32, device=self._dev)
-            self.map_state = self.map_state._replace(
-                landmarks=mapping.prune(self.config, self.map_state.landmarks,
-                                        now))
+            with TRACER.span("ba.prune"):
+                now = torch.tensor(ts_rel, dtype=torch.float32,
+                                   device=self._dev)
+                self.map_state = self.map_state._replace(
+                    landmarks=mapping.prune(self.config,
+                                            self.map_state.landmarks, now))
             self.stats["ba_runs"] += 1
             if self.ba_async:
                 self._pending_ba_results.append((res, timestamp))
@@ -469,6 +485,7 @@ class SLAMSystem:
         groups += [tuple(r) for _, _, r, _ in self._pending_queries]
         return groups
 
+    @traced("pipeline.emit")
     def _drain_results(self, bundle=None) -> List[FrameResult]:
         """Harvest the pending place results (read in ``bundle``, or here in
         one transfer), then emit every pending frame."""
@@ -545,33 +562,38 @@ class SLAMSystem:
         descriptors are buffered on the host; after vocab_train_keyframes
         of them the vocabulary is trained (host k-medians) and they are
         added."""
-        cfg = self.config
         if self._bow_db is None:
-            m, desc, uv, xyz, q, t = _to_host([(
-                kf.mask, kf.desc_bits, kf.uv, kf.xyz_w, kf.q_wc, kf.t_wc)])[0]
-            m = m > 0.5
-            self._kf_descs.append((desc[m].astype(np.uint8), uv[m], xyz[m],
-                                   (q, t)))
-            if len(self._kf_descs) < self.vocab_train_keyframes:
-                return
-            voc = bow.train_vocabulary(
-                np.concatenate([d for d, _, _, _ in self._kf_descs]),
-                k=cfg.place.branching, depth=cfg.place.depth, seed=0,
-                doc_ids=np.concatenate(
-                    [np.full(len(d), i)
-                     for i, (d, _, _, _) in enumerate(self._kf_descs)]),
-                device=self._dev)
-            self._bow_db = bow.Database(voc,
-                                        capacity=cfg.place.max_db_entries)
-            for d, u, x, po in self._kf_descs:
-                slot = self._bow_db.add(torch.from_numpy(d).to(self._dev))
-                self._store_kf(slot, d, u, x, po)
-            self._kf_descs = []
+            with TRACER.span("place.vocab"):
+                self._train_vocabulary(kf)
             return
         res = self._bow_db.query(kf.desc_bits, kf.mask, top_k=self.loop_top_k)
         entry = self._bow_db.add(kf.desc_bits, kf.mask)
         entry_seq = self._store_kf_block(entry, kf)
         self._pending_queries.append((entry_seq, entry, res, timestamp))
+
+    def _train_vocabulary(self, kf: tracker.KeyframeBlock) -> None:
+        """Buffer the keyframe's valid descriptors on the host; at the
+        ``vocab_train_keyframes``-th, train the vocabulary and add them."""
+        cfg = self.config
+        m, desc, uv, xyz, q, t = _to_host([(
+            kf.mask, kf.desc_bits, kf.uv, kf.xyz_w, kf.q_wc, kf.t_wc)])[0]
+        m = m > 0.5
+        self._kf_descs.append((desc[m].astype(np.uint8), uv[m], xyz[m],
+                               (q, t)))
+        if len(self._kf_descs) < self.vocab_train_keyframes:
+            return
+        voc = bow.train_vocabulary(
+            np.concatenate([d for d, _, _, _ in self._kf_descs]),
+            k=cfg.place.branching, depth=cfg.place.depth, seed=0,
+            doc_ids=np.concatenate(
+                [np.full(len(d), i)
+                 for i, (d, _, _, _) in enumerate(self._kf_descs)]),
+            device=self._dev)
+        self._bow_db = bow.Database(voc, capacity=cfg.place.max_db_entries)
+        for d, u, x, po in self._kf_descs:
+            slot = self._bow_db.add(torch.from_numpy(d).to(self._dev))
+            self._store_kf(slot, d, u, x, po)
+        self._kf_descs = []
 
     def _harvest_queries(self, host_results=None) -> None:
         """Read the pending BoW query results and dispatch the geometric
@@ -714,6 +736,7 @@ class SLAMSystem:
         rec["applied"] = ok
         self.reloc_log.append(rec)
         if ok:
+            TRACER.count("place.verify.passed")
             self.tracker_state = apply_reloc(self.tracker_state, verdict[1],
                                              verdict[2], q_froz, t_froz)
             self.stats["relocalizations"] += 1
@@ -733,6 +756,7 @@ class SLAMSystem:
             rec["t_pnp"] = [round(float(v), 4) for v in t_pnp_h]
             if rec["inliers"] < self.loop_min_inliers:
                 continue
+            TRACER.count("place.verify.passed")
             self.loop_candidates.append(rec)
             self.stats["loop_candidates"] += 1
             # a drift correction rewrites the ring and the landmarks: demand
@@ -868,6 +892,7 @@ class SLAMSystem:
                     for n in ("desc", "uv", "mask", "xyz", "q", "t")]
                 self._kf_store[slot] = (int(data[key]), *arrays)
 
+    @traced("pipeline.read")
     def _record_ba(self, res: ba_mod.BAResult, ts: float) -> None:
         host = {k: v.item() for k, v in res._asdict().items()
                 if k in ("converged", "initial_cost", "final_cost",

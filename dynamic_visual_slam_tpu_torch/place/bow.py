@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from dynamic_visual_slam_tpu_torch.core.containers import topk_stable
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER, traced
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +288,7 @@ class Database:
                               device=desc_bits.device)
         return self.vocabulary.transform(desc_bits, mask)
 
+    @traced("place.add")
     def add(self, desc_bits: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> int:
         """Add a keyframe's descriptors; returns its entry id (ring slot)."""
@@ -297,10 +299,12 @@ class Database:
         self.count += 1
         return slot
 
+    @traced("place.query")
     def query(self, desc_bits: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
               top_k: int = 5) -> QueryResult:
         """The top_k stored entries by L1 score (unused slots score -1)."""
+        TRACER.count("place.queries")
         v = self._vector(desc_bits, mask)
         scores = torch.where(self.used, l1_score(self.vectors, v[None, :]),
                              -1.0)

@@ -26,6 +26,7 @@ from dynamic_visual_slam_tpu_torch.config import SLAMConfig
 from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.pipeline.slam import resolve_device
 from dynamic_visual_slam_tpu_torch.semantic.classes import category_id
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 LETTERBOX_FILL = 0.447
 
@@ -136,24 +137,36 @@ class YoloDetector:
         return letterbox(rgb, self.size, self.device)
 
     def __call__(self, rgb) -> Detections:
-        canvas, scale, (px, py) = self.letterbox(rgb)
-        sc = self.cfg.semantic
-        raw = yolov8.detect(self.model, canvas, sc.max_detections,
-                            sc.score_threshold, sc.iou_threshold)
-        h, w = rgb.shape[:2]
-        dev = self.device
-        pad = torch.tensor([px, py, px, py], dtype=torch.float32, device=dev)
-        hi = torch.tensor([w - 1, h - 1, w - 1, h - 1], dtype=torch.float32,
-                          device=dev)
-        boxes = torch.minimum(torch.clamp((raw.boxes - pad) / scale, min=0.0),
-                              hi)
-        # the frame's one host read: boxes, class id + 1, score, valid
-        host = torch.cat([boxes, (raw.classes + 1).to(torch.float32)[:, None],
-                          raw.scores[:, None],
-                          raw.valid.to(torch.float32)[:, None]], dim=1)
-        host = host.cpu().numpy()
-        return self._postprocess(host[:, :4], host[:, 4].astype(np.int32),
-                                 host[:, 5], host[:, 6] > 0.5, (h, w))
+        """Spans: ``detector``, and inside it ``detector.pre`` (the
+        letterbox), ``detector.forward`` (network, decode, NMS) and
+        ``detector.post`` (boxes back to the frame, the host read, box
+        tracks)."""
+        with TRACER.entry("detector", 0, self.device):
+            with TRACER.span("detector.pre"):
+                canvas, scale, (px, py) = self.letterbox(rgb)
+            sc = self.cfg.semantic
+            with TRACER.span("detector.forward"):
+                raw = yolov8.detect(self.model, canvas, sc.max_detections,
+                                    sc.score_threshold, sc.iou_threshold)
+            with TRACER.span("detector.post"):
+                h, w = rgb.shape[:2]
+                dev = self.device
+                pad = torch.tensor([px, py, px, py], dtype=torch.float32,
+                                   device=dev)
+                hi = torch.tensor([w - 1, h - 1, w - 1, h - 1],
+                                  dtype=torch.float32, device=dev)
+                boxes = torch.minimum(
+                    torch.clamp((raw.boxes - pad) / scale, min=0.0), hi)
+                # the frame's one host read: boxes, class id + 1, score,
+                # valid
+                host = torch.cat([boxes,
+                                  (raw.classes + 1).to(torch.float32)[:, None],
+                                  raw.scores[:, None],
+                                  raw.valid.to(torch.float32)[:, None]], dim=1)
+                host = host.cpu().numpy()
+                return self._postprocess(
+                    host[:, :4], host[:, 4].astype(np.int32), host[:, 5],
+                    host[:, 6] > 0.5, (h, w))
 
     def _update_tracks(self, b: np.ndarray, c: np.ndarray, s: np.ndarray,
                        hw) -> tuple:

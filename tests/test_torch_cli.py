@@ -31,7 +31,8 @@ its outputs go through, against the JAX package.
   reference's ``cli run`` and the port's, both on a stand-in system
   (``FakeSystem``), per frame, ``--batch 4`` and ``--threaded``: the live
   view gets the same updates and trace.json the same events; on the port's
-  system ``--trace`` (a "frame" pair a frame) and ``--serve`` (N // 2 + 1
+  system ``--trace`` (a "frame" tree a frame, the layers' stage spans
+  inside it) and ``--serve`` (N // 2 + 1
   updates) leave the trajectory and the stats but for their timings as
   without them; ``--threaded`` moves the frames through the native
   runtime's NativeQueue byte for byte; ``parity --seeds 2`` reports the
@@ -596,8 +597,9 @@ def test_trace_and_live_view_follow_the_reference(monkeypatch, tmp_path,
 @pytest.mark.parametrize("tool", ["trace", "serve"])
 def test_trace_and_serve_leave_the_run_unchanged(monkeypatch, tmp_path,
                                                  plain_run, tool):
-    """The port's system through ``cli run`` with ``--trace`` (a "frame"
-    begin/end pair a frame in trace.json) or with ``--serve 0
+    """The port's system through ``cli run`` with ``--trace`` (in
+    trace.json a tree a frame: "frame", the ``process`` call inside it,
+    the layers' stage spans inside that) or with ``--serve 0
     --serve-every 2`` (the reference's number of updates, N // 2 + 1):
     the trajectory file and the stats but for their timings equal the
     same command's without the flag."""
@@ -615,17 +617,51 @@ def test_trace_and_serve_leave_the_run_unchanged(monkeypatch, tmp_path,
     assert set(stats) == set(want)
     assert (out_dir / "frontend.tum").read_text() == plain_run["tum"]
     if tool == "trace":
-        events = json.loads((out_dir / "trace.json").read_text())[
-            "traceEvents"]
-        assert [(e["name"], e["ph"]) for e in events] == \
-            [("frame", "B"), ("frame", "E")] * N
-        assert all(b["ts"] <= e["ts"] for b, e in zip(events[::2],
-                                                      events[1::2]))
+        doc = json.loads((out_dir / "trace.json").read_text())
+        frames = _trees(doc["traceEvents"])
+        # a tree a frame: "frame" at the root, the process call inside it,
+        # the layers and their stages inside that
+        assert [f[0] for f in frames] == ["frame"] * N
+        assert all([k[0] for k in f[1]] == ["process"] for f in frames)
+        names = [_subtree_names(f) for f in frames]
+        assert all({"process", "track", "track.prep", "track.match",
+                    "track.ransac.fm", "track.ransac.pnp", "extract",
+                    "extract.pyramid", "extract.b1", "extract.b2",
+                    "pipeline.read", "pipeline.emit"} <= n for n in names)
+        assert sum("insert" in n for n in names) >= 1
+        assert sum({"ba", "ba.optimize"} <= n for n in names) == \
+            stats["ba_runs"]
+        summary = doc["otherData"]
+        assert summary["frames"] == N
+        assert summary["spans"]["frame"]["calls"] == N
+        assert summary["spans"]["process"]["calls"] == N
     else:
         assert not (out_dir / "trace.json").exists()
         (view,) = Recorder.made
         assert len(view.updates) == N // 2 + 1 and view.closed
         assert [u[3] for u in view.updates] == list(range(2, N + 1, 2)) + [N]
+
+
+def _trees(events):
+    """Chrome B/E events → [(name, children, begin ts, end ts)] of the
+    roots, checking that they nest, each thread in time order."""
+    roots, stack = [], []
+    for e in events:
+        if e["ph"] == "B":
+            node = (e["name"], [], e["ts"], [None])
+            (stack[-1][1] if stack else roots).append(node)
+            stack.append(node)
+        else:
+            node = stack.pop()
+            assert e["ph"] == "E" and e["name"] == node[0]
+            assert e["ts"] >= node[2]
+            node[3][0] = e["ts"]
+    assert not stack
+    return [(n, k, b, e[0]) for n, k, b, e in roots]
+
+
+def _subtree_names(node):
+    return {node[0]}.union(*(_subtree_names(k) for k in node[1]))
 
 
 @pytest.fixture(scope="module")

@@ -13,10 +13,10 @@ reference package's, and the profiling helpers on top of it.
 - The build: the library is named by a digest of source and flags under
   ``build/native/``, never the reference's ``libdvsruntime.so``; several
   processes building at once leave one loadable library; a stale library
-  or a leftover temporary file is never loaded; ``cli run --trace`` with
-  no working compiler exits 2 with the compiler's message.
-- ``device_profile`` writes a trace on the CPU; ``make_tracer`` returns a
-  ``NativeTracer``.
+  or a leftover temporary file is never loaded; ``cli run --trace``, which
+  records through the port's tracer, writes its trace with no working
+  compiler.
+- ``device_profile`` writes a trace on the CPU.
 """
 
 import ctypes
@@ -245,7 +245,9 @@ def test_an_edited_source_is_rebuilt(tmp_path, monkeypatch):
     assert q.pop(0.1) == (2.0, b"x")
 
 
-def test_trace_without_a_compiler_exits_2(tmp_path, monkeypatch, capsys):
+def test_trace_without_a_compiler_writes_the_trace(tmp_path, monkeypatch):
+    """``--trace`` records through the port's own tracer
+    (``utils/profiling.TRACER``): no native runtime is needed."""
     monkeypatch.setattr(build, "CXX", str(tmp_path / "no-such-g++"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "native")
     monkeypatch.setattr(native, "_lib", None)
@@ -253,22 +255,15 @@ def test_trace_without_a_compiler_exits_2(tmp_path, monkeypatch, capsys):
     rc = cli.main(["run", "--device", "cpu", "--width", "160", "--height",
                    "120", "--frames", "2", "--trace", "--out-dir",
                    str(tmp_path / "out")])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "--trace" in err and "no-such-g++" in err
-    assert not (tmp_path / "out" / "trace.json").exists()
+    assert rc == 0
+    events = json.loads((tmp_path / "out" / "trace.json").read_text())[
+        "traceEvents"]
+    assert [e["name"] for e in events if e["ph"] == "B"].count("frame") == 2
     assert not native.available()
-    with pytest.raises(RuntimeError, match="no-such-g\\+\\+"):
-        profiling.make_tracer()
+    assert not profiling.TRACER.on
 
 
 # --- profiling ------------------------------------------------------------
-
-def test_make_tracer_returns_a_native_tracer():
-    tr = profiling.make_tracer(capacity=16)
-    assert isinstance(tr, native.NativeTracer)
-    tr.instant("x")
-
 
 def test_device_profile_writes_a_trace_on_the_cpu(tmp_path):
     logdir = tmp_path / "prof"
