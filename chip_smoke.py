@@ -9,7 +9,9 @@ Phases (one JSON line each, prefixed "phase"):
   kernels  each kernel against its plain PyTorch version on the card at the
            main path's shapes (720p, batch 24, 8 levels, 1024 keypoints a
            frame; kernel B3 on one 1280x720 frame, and on a 479x641 frame
-           and fractional input): results must be identical; device times
+           and fractional input; pnp_ransac at the tracker's shapes, 1024
+           slots, 192 hypotheses and a prior, at B = 1, 8 and 24): results
+           must be identical; device times
            by CUDA events; bounds from bytes and instruction counts at the
            rates scripts/issue_rates.py measured (ISSUE_RATES);
   small    the slice at 320x240 (the repository's pipeline fixture) on the
@@ -222,6 +224,14 @@ ISSUE_RATES = {"fmin": 1.6668e13, "fadd": 3.2570e13, "min_s16x2": 1.6685e13,
 PIPE = {"fmin": "alu", "min_s16x2": "alu", "min3_s16x2": "alu",
         "int32": "alu", "fadd": "fma"}
 HIDE_HOST_CYCLES = 40_000_000  # cuda_ms's wait: about 20 ms at 1.98 GHz
+# B1 and B2 launch once a frame (a scan step, a shard) wherever ORB runs;
+# kernel pnp_ransac once a PnP call: twice a tracked frame with the anchor
+# (the fleet's), once without, and once a loop or relocalization check
+FRAME_KERNELS = ("fast_score", "orb_desc_moments")
+PNP_PER_STEP = 2
+# kernels phase, pnp_ransac: the tracker's shapes (1024 slots, 192
+# hypotheses, a prior, 10 refinement steps a pass) at these batches
+PNP_BATCHES = (1, 8, 24)
 BATCH = 24
 WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA round
 TIMED_BATCHES = 5              # 120 frames (bench.py: 240), BA ticks twice
@@ -372,6 +382,43 @@ def bound(n_bytes: float, n_instr: dict):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def pnp_problems(k: Intrinsics, b: int, n: int, seed: int):
+    """b PnP problems of n slots on the card, as the tracker hands them
+    over: points 1 to 6 m ahead, their noisy pixels in a second view, a
+    quarter moved far off, 40 % of the slots masked out; the true motion as
+    the prior."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -1.5, 1.0], [2, 1.5, 6.0], (b, n, 3)).astype(
+        np.float32)
+    rv = torch.from_numpy((rng.normal(size=(b, 3)) * 0.05).astype(np.float32))
+    tv = (rng.normal(size=(b, 3)) * 0.1).astype(np.float32)
+    cam = np.einsum("bij,bnj->bni", lie.rodrigues(rv).numpy(), pts) \
+        + tv[:, None]
+    kk = np.array([[k.fx, 0, k.cx], [0, k.fy, k.cy], [0, 0, 1]])
+    uv = ((cam / cam[..., 2:]) @ kk.T)[..., :2] \
+        + rng.normal(size=(b, n, 2)) * 0.5
+    off = rng.random((b, n)) < 0.25
+    uv[off] += rng.uniform(10, 200, size=(int(off.sum()), 2))
+    dev = torch.device("cuda")
+    return (torch.from_numpy(pts).to(dev),
+            torch.from_numpy(uv.astype(np.float32)).to(dev),
+            torch.from_numpy(rng.random((b, n)) < 0.6).to(dev),
+            lie.so3_exp(rv).to(dev), torch.from_numpy(tv).to(dev))
+
+
+def pnp_instr(b: int, n: int, n_hyp: int, iters: int) -> dict:
+    """pnp_ransac's float32 operations (an FMA one, a float64 one one) from
+    its formulas: a DLT hypothesis about 26,400 (the 12 x 12 Gram, 8
+    normalised squarings, 4 matrix-vector products, two 12 x 13
+    Gauss-Jordan solves, the 3 x 3 SVD), 27 a point under each of the
+    n_hyp + 2 hypotheses, about 116 a point a Gauss-Newton step and 27 a
+    point in each of three reprojections."""
+    dlt = 1728 + 8 * (1728 + 288) + 4 * 144 + 2 * 12 * 156 * 2 + 500
+    per = n_hyp * dlt + (n_hyp + 2) * n * 27 + 2 * iters * n * 116 \
+        + 3 * n * 27
+    return {"fadd": b * per}
+
+
 def frames_720p():
     cam = SLAMConfig().camera
     out = []
@@ -486,6 +533,35 @@ def phase_kernels(frames, cfg: SLAMConfig):
     # add rate: 2 multiplies and 2 adds a disc pixel, ~8 a sample, 1 a bit
     b2_bound, b2_by = bound(n_kp * (4 * n_disc + 4 * 512 + 16 + 256 + 8),
                             {"fadd": n_kp * (4 * n_disc + 8 * 512 + 256)})
+    # --- pnp_ransac: the tracker's PnP at B = 1, 8 and 24 ------------------
+    k = Intrinsics.from_config(cfg.camera)
+    rc = cfg.ransac
+    n_slot, n_hyp = cfg.orb.max_keypoints, rc.pnp_iterations
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pnp_rows = {}
+    for b in PNP_BATCHES:
+        xyz, uv, m, q, t = pnp_problems(k, b, n_slot, seed=b)
+        smp = ransac.sample_indices(gen, n_hyp, 6, m.sum(-1))
+        kw = dict(threshold=rc.pnp_threshold_px,
+                  min_inliers=rc.min_pnp_matches,
+                  refine_iters=rc.refine_iterations, prior_q=q, prior_t=t)
+        got_p = ransac.pnp_ransac(k, xyz, uv, m, samples=smp, **kw)
+        want_p = ransac.pnp_ransac_plain(k, xyz, uv, m, smp, **kw)
+        torch.cuda.synchronize()
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got_p, want_p))
+        if not all(torch.equal(g, w) for g, w in zip(got_p, want_p)):
+            fail(f"pnp_ransac differs from its plain version at B = {b}: "
+                 f"max abs {err}")
+        bnd, by = bound(b * (21 * n_slot + 48 * n_hyp + 28 + n_slot + 37),
+                        pnp_instr(b, n_slot, n_hyp, rc.refine_iterations))
+        pnp_rows[b] = dict(
+            max_abs_err=err, valid=int(got_p.valid.sum()),
+            ms=cuda_ms(lambda: ransac.pnp_ransac(k, xyz, uv, m, samples=smp,
+                                                 **kw)),
+            plain_ms=cuda_ms(lambda: ransac.pnp_ransac_plain(
+                k, xyz, uv, m, smp, **kw)),
+            bound_ms=bnd, bound_by=by)
     # --- B1 and B2 at the fleet's shape: 8 frames a launch ----------------
     lv8 = [lv[:FLEET_STREAMS].contiguous() for lv in levels]
     got8 = fields.fast_score_batch(lv8)
@@ -524,6 +600,16 @@ def phase_kernels(frames, cfg: SLAMConfig):
              max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain,
              bound_ms=b2_bound, bound_by=b2_by, library_ms=None,
              shape=f"{n_kp} keypoints"),
+        dict(name=ransac.KERNEL, route="cuda",
+             source="dynamic_visual_slam_tpu_torch/csrc/pnp_ransac.cu",
+             replaces="none: dynamic_visual_slam_tpu/frontend/ransac.py "
+                      "pnp_ransac is plain jnp",
+             max_abs_err=max(r["max_abs_err"] for r in pnp_rows.values()),
+             ms=pnp_rows[BATCH]["ms"], plain_ms=pnp_rows[BATCH]["plain_ms"],
+             bound_ms=pnp_rows[BATCH]["bound_ms"],
+             bound_by=pnp_rows[BATCH]["bound_by"], library_ms=None,
+             shape=f"{BATCH} problems x {n_slot} slots, {n_hyp} hypotheses "
+                   "and a prior"),
         dict(name=fast.B3_COUNTER, route="cuda",
              source="dynamic_visual_slam_tpu_torch/csrc/fast_score.cu",
              replaces="dynamic_visual_slam_tpu/ops/fast.py:111",
@@ -532,7 +618,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
              shape="one 1280x720 frame (and 479x641, fractional)"),
     ]
     emit("kernels", kernels=rows, fast_instr=fast_instr(levels),
-         fleet_shape=fleet_shape,
+         fleet_shape=fleet_shape, pnp_ransac_by_batch=pnp_rows,
          blur_card_vs_cpu=dict(pixels=n_px, differ=blur_raw,
                                differ_rounded=blur_round))
     return rows
@@ -1323,8 +1409,9 @@ def phase_train_vocab(device="cuda"):
         fail(f"train_vocab: retrieval accuracy "
              f"{report['scene_retrieval_accuracy']} below {floor:.4f} (the "
              f"reference's {REF_VOCAB_ACCURACY} less one scene)")
-    if device == "cuda" and any(launches.get(name, 0) != n_frames
-                                for name in kernels.SOURCES):
+    if device == "cuda" and (any(launches.get(name, 0) != n_frames
+                                 for name in FRAME_KERNELS)
+                             or launches.get(ransac.KERNEL, 0)):
         fail(f"train_vocab: launches {launches} for {n_frames} frames")
     return launches
 
@@ -1679,7 +1766,8 @@ def phase_fleet(frames, cfg: SLAMConfig, device="cuda"):
     if not finite:
         fail("fleet: a pose or BA cost is not finite")
     for name in kernels.SOURCES:
-        if launches.get(name, 0) != shards * FLEET_TIMED * FLEET_T:
+        per = PNP_PER_STEP if name == ransac.KERNEL else 1
+        if launches.get(name, 0) != per * shards * FLEET_TIMED * FLEET_T:
             fail(f"fleet: kernel {name} launched {launches.get(name, 0)} "
                  f"times for {shards} shards x {FLEET_TIMED * FLEET_T} scan "
                  "steps")
@@ -1842,7 +1930,8 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
     ]
     for name in kernels.SOURCES:
         got = two["launches"].get(name, 0)
-        checks.append((got == shards * steps,
+        per = PNP_PER_STEP if name == ransac.KERNEL else 1
+        checks.append((got == per * shards * steps,
                        f"kernel {name} launched {got} times for {shards} "
                        f"shards x {steps} scan steps"))
     bad = [msg for ok, msg in checks if not ok]
@@ -2065,8 +2154,9 @@ def phase_tools(device="cuda"):
         fail(f"tools: --trace --serve changed the run: keyframes "
              f"{st['keyframes']} against {plain['stats']['keyframes']}, "
              f"positions {pos_err} m")
-    if device == "cuda" and any(launches.get(name, 0) != TOOLS_FRAMES
-                                for name in kernels.SOURCES):
+    if device == "cuda" and (any(launches.get(name, 0) != TOOLS_FRAMES
+                                 for name in FRAME_KERNELS)
+                             or launches.get(ransac.KERNEL, 0) < TOOLS_FRAMES):
         fail(f"tools: launches {launches} for {TOOLS_FRAMES} frames")
     if not native.available():
         fail(f"tools: native runtime not built: {native.error()}")
@@ -2217,8 +2307,9 @@ def phase_parity(device="cuda"):
     if not run["tpu_ate_m"] < run["oracle_ate_m"]:
         fail(f"parity: ATE {run['tpu_ate_m']} m, not below the oracle's "
              f"{run['oracle_ate_m']} m")
-    if device == "cuda" and any(launches.get(name, 0) != PARITY_FRAMES
-                                for name in kernels.SOURCES):
+    if device == "cuda" and (any(launches.get(name, 0) != PARITY_FRAMES
+                                 for name in FRAME_KERNELS)
+                             or launches.get(ransac.KERNEL, 0) < PARITY_FRAMES):
         fail(f"parity: launches {launches} for {PARITY_FRAMES} frames")
     if not cost_rel < BA_COST_REL:
         fail(f"parity: BA cost {float(got.final_cost)} against the "
@@ -2266,8 +2357,9 @@ def phase_sweep(device="cuda"):
         fail(f"sweep: anchored ATE {anchored['tpu_ate_mean_m']} m above the "
              f"oracle's {anchored['oracle_ate_mean_m']} m")
     runs = 2 * SWEEP_FRAMES
-    if device == "cuda" and any(launches.get(name, 0) != runs
-                                for name in kernels.SOURCES):
+    if device == "cuda" and (any(launches.get(name, 0) != runs
+                                 for name in FRAME_KERNELS)
+                             or launches.get(ransac.KERNEL, 0) < runs):
         fail(f"sweep: launches {launches} for 2 runs of {SWEEP_FRAMES} "
              "frames")
     return launches

@@ -22,9 +22,16 @@ torch cannot reproduce.  ``sample_indices`` draws them from an explicit
 sample indices directly (``samples=``), which is how the tests feed both
 packages the same draws.
 
+PnP routes: ``pnp_ransac`` solves CUDA tensors with one launch of kernel
+``csrc/pnp_ransac.cu`` (every problem of the batch a block) and CPU tensors
+with ``pnp_ransac_plain``, the chain of batched PyTorch operations that the
+kernel follows operation for operation, in the card's rounding.
+
 Counters (``utils/profiling``): ``ransac.hypotheses.fm`` and
 ``ransac.hypotheses.pnp``, the hypotheses each call scores, every frame
-of a batch counted (a PnP's prior pose and identity included).
+of a batch counted (a PnP's prior pose and identity included);
+``ransac.pnp.kernel`` and ``ransac.pnp.plain``, the PnP problems each
+route solved.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dynamic_visual_slam_tpu_torch import kernels
 from dynamic_visual_slam_tpu_torch.core import containers, lie
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.ops import linalg_small as ls
@@ -249,6 +257,12 @@ def _gauss_newton_refine(k: Intrinsics, q0, t0, xyz, uv, w, iters: int):
     return q, t
 
 
+KERNEL = "pnp_ransac"
+# shared memory the kernel takes beside its fixed part: two inlier bit
+# masks of K bits and a counter a hypothesis (csrc/pnp_ransac.cu)
+MAX_DYN_SMEM = 180 * 1024
+
+
 def pnp_ransac(k: Intrinsics, xyz: torch.Tensor, uv: torch.Tensor,
                mask: torch.Tensor, n_hyp: int = 128,
                threshold: float = 4.0, min_inliers: int = 6,
@@ -261,15 +275,95 @@ def pnp_ransac(k: Intrinsics, xyz: torch.Tensor, uv: torch.Tensor,
     mask (..., K).  prior_q/prior_t (optional, (..., 4)/(..., 3)): a
     predicted pose that joins the hypothesis pool with an identity
     hypothesis.  samples: optional (..., n_hyp, 6) indices into the
-    compacted valid points; drawn from ``generator`` when absent."""
+    compacted valid points, each in [0, K); drawn from ``generator`` when
+    absent.  CUDA tensors take kernel ``pnp_ransac`` (one launch, no host
+    read), CPU tensors ``pnp_ransac_plain``."""
+    if samples is None:
+        samples = sample_indices(generator, n_hyp, 6, mask.sum(-1))
+    n_prob = mask.shape[:-1].numel()
+    TRACER.count("ransac.hypotheses.pnp", n_prob * (
+        samples.shape[-2] + (2 if prior_q is not None else 0)))
+    args = (k, xyz, uv, mask, samples, threshold, min_inliers, refine_iters,
+            prior_q, prior_t)
+    if mask.device.type == "cpu":
+        TRACER.count("ransac.pnp.plain", n_prob)
+        return pnp_ransac_plain(*args)
+    if mask.device.type != "cuda":
+        raise ValueError(f"pnp_ransac: unsupported device {mask.device}")
+    TRACER.count("ransac.pnp.kernel", n_prob)
+    return _pnp_kernel(*args)
+
+
+def _pnp_kernel(k: Intrinsics, xyz, uv, mask, samples, threshold,
+                min_inliers, refine_iters, prior_q, prior_t) -> PnPResult:
+    """``pnp_ransac`` on the card: checks, one launch of the kernel."""
+    lead = mask.shape[:-1]
+    kk = mask.shape[-1]
+    n_hyp = samples.shape[-2] if samples.ndim >= 2 else 0
+    dev = mask.device
+    prior = prior_q is not None
+    want = [(xyz, torch.float32, lead + (kk, 3)),
+            (uv, torch.float32, lead + (kk, 2)),
+            (mask, torch.bool, lead + (kk,)),
+            (samples, torch.int64, lead + (n_hyp, 6))]
+    if prior or prior_t is not None:
+        if not (prior and prior_t is not None):
+            raise ValueError("pnp_ransac: give both prior_q and prior_t")
+        want += [(prior_q, torch.float32, lead + (4,)),
+                 (prior_t, torch.float32, lead + (3,))]
+    for x, dtype, shape in want:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"pnp_ransac: expected {dtype} {shape} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    n_words = (kk + 31) // 32
+    dyn = 4 * (2 * n_words + n_hyp + 2)
+    if kk < 1 or n_hyp + 2 * prior < 1 or dyn > MAX_DYN_SMEM:
+        raise ValueError(f"pnp_ransac: K = {kk} points and {n_hyp} "
+                         f"hypotheses (prior: {prior}) are outside the "
+                         "kernel's range")
+    b = lead.numel()
+    xyz, uv, mask, samples = (x.contiguous() for x in (xyz, uv, mask,
+                                                        samples))
+    if prior:
+        prior_q, prior_t = prior_q.contiguous(), prior_t.contiguous()
+    perm = torch.empty(b * kk, dtype=torch.int32, device=dev)
+    hyp = torch.empty(b * (n_hyp + 2) * 12, dtype=torch.float32, device=dev)
+    q = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
+    t = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    inl = torch.empty(lead + (kk,), dtype=torch.bool, device=dev)
+    n_in = torch.empty(lead, dtype=torch.int64, device=dev)
+    valid = torch.empty(lead, dtype=torch.bool, device=dev)
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    fn = kernels.entry(KERNEL)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # (uv - c) / f on the card multiplies by 1/f rounded from double
+        status = fn(ptr(xyz), ptr(uv), ptr(mask), ptr(samples),
+                    ptr(prior_q), ptr(prior_t), ptr(perm), ptr(hyp), ptr(q),
+                    ptr(t), ptr(inl), ptr(n_in), ptr(valid), b, kk, n_hyp,
+                    refine_iters, min_inliers, k.fx, k.fy, k.cx, k.cy,
+                    1.0 / k.fx, 1.0 / k.fy, threshold, dyn, stream)
+    kernels.check(KERNEL, status)
+    if b:
+        kernels.count(KERNEL)
+    return PnPResult(q, t, inl, n_in, valid)
+
+
+def pnp_ransac_plain(k: Intrinsics, xyz: torch.Tensor, uv: torch.Tensor,
+                     mask: torch.Tensor, samples: torch.Tensor,
+                     threshold: float = 4.0, min_inliers: int = 6,
+                     refine_iters: int = 10,
+                     prior_q: Optional[torch.Tensor] = None,
+                     prior_t: Optional[torch.Tensor] = None) -> PnPResult:
+    """``pnp_ransac``'s plain version: the same arguments, the minimal sets
+    given."""
     nb = mask.ndim - 1
     count = mask.sum(-1)
     order = containers.stable_partition(mask)
     cxyz = containers.bgather(xyz, order, nb)
     xn = torch.stack([(uv[..., 0] - k.cx) / k.fx, (uv[..., 1] - k.cy) / k.fy], -1)
     cxn = containers.bgather(xn, order, nb)
-    if samples is None:
-        samples = sample_indices(generator, n_hyp, 6, count)
     rs, ts = _dlt_pose(containers.bgather(cxyz, samples, nb),
                        containers.bgather(cxn, samples, nb))
     if prior_q is not None:
@@ -278,7 +372,6 @@ def pnp_ransac(k: Intrinsics, xyz: torch.Tensor, uv: torch.Tensor,
         rs = torch.cat([rs, lie.quat_to_mat(prior_q)[..., None, :, :], eye], -3)
         ts = torch.cat([ts, prior_t[..., None, :],
                         torch.zeros_like(ts[..., :1, :])], -2)
-    TRACER.count("ransac.hypotheses.pnp", rs.shape[:-2].numel())
     errs = _reproj_errors(k, rs, ts, xyz[..., None, :, :], uv[..., None, :, :])
     inl = (errs < threshold) & mask[..., None, :]
     scores = inl.sum(-1)

@@ -13,11 +13,14 @@ once where the plain PyTorch versions round twice, which would flip the
 ``rint`` of a rotated BRIEF offset.
 
 ``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/fields.py`` and ``ops/descriptors.py`` (through ``count``, under a
+``ops/fields.py``, ``ops/descriptors.py`` and ``frontend/ransac.py``
+(through ``count``, under a
 lock: the fleet's shards launch from one thread each); ``chip_smoke.py``
 resets it before it drives the main path and reads it after.  ``entry``
 builds and loads under a lock too, so threads that reach an unbuilt kernel
-together run one ``nvcc``.
+together run one ``nvcc``; the first unbuilt kernel a process reaches
+builds every unbuilt one, their ``nvcc`` processes side by side, so the
+set-up of a run pays for the slowest build, not for their sum.
 
 The kernels (each source's header note has the detail):
 
@@ -34,7 +37,17 @@ The kernels (each source's header note has the detail):
   Persistent warps keep the sampling pattern in registers. Each lane streams
   one disc column without shared memory, and each lane writes its 8 bits in
   one store.
-- ``persistent.cuh``: the grid size of a persistent kernel, shared by both.
+- ``pnp_ransac.cu``: replaces no Pallas kernel (the reference's
+  ``frontend/ransac.py::pnp_ransac`` is plain jnp); it runs the port's
+  plain PnP RANSAC, some 4,400 tiny PyTorch launches a call, as one.
+  Bound by neither bytes nor operations on this card: its time is the
+  chain of dependent steps inside one block a problem (the DLT's squarings
+  and pivots, 20 block-wide reductions and 6x6 solves).  One warp solves a
+  DLT at a time in shared memory, the scoring keeps points in registers
+  and counts inliers by warp ballot, and Gauss-Newton reduces its float64
+  normal equations over the block.
+- ``persistent.cuh``: the grid size of a persistent kernel, shared by B1
+  and B2.
 """
 
 from __future__ import annotations
@@ -55,19 +68,23 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = {
     "fast_score": "fast_score.cu",
     "orb_desc_moments": "orb_desc_moments.cu",
+    "pnp_ransac": "pnp_ransac.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 ARGTYPES = {
     "fast_score_levels": [_P, _P, _P, _P, _I, _I, _P],
     "orb_desc_moments": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                          _P, _P, _P],
+    "pnp_ransac": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I, _P],
 }
 ENTRY = {"fast_score": "fast_score_levels",
-         "orb_desc_moments": "orb_desc_moments"}
+         "orb_desc_moments": "orb_desc_moments",
+         "pnp_ransac": "pnp_ransac"}
 
 launches: collections.Counter = collections.Counter()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -139,13 +156,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name`` (building it if needed)."""
+    """The C entry point of kernel ``name`` (building, together, every
+    kernel not built yet)."""
     lib = _loaded.get(name)
     if lib is None:
         with _load_lock:
             lib = _loaded.get(name)
             if lib is None:
-                build([name])
+                build(SOURCES)
                 lib = ctypes.CDLL(str(library_path(name)))
                 fn = getattr(lib, ENTRY[name])
                 fn.argtypes = ARGTYPES[ENTRY[name]]

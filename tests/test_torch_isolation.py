@@ -29,7 +29,7 @@ from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.evaluation import (loop720p, ood,
                                                       parity_sweep)
-from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
+from dynamic_visual_slam_tpu_torch.frontend import orb, ransac, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.models import yolov8
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fields
@@ -181,6 +181,13 @@ def test_wrappers_take_the_plain_path_only_on_the_cpu():
     idx = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         descriptors.descriptors_moments(pad, pad, idx, idx, idx, idx)
+    k = Intrinsics(500.0, 500.0, 320.0, 240.0)
+    pts = torch.zeros((1, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ransac.pnp_ransac(k, pts, pts[..., :2],
+                          torch.zeros((1, 8), dtype=torch.bool, device="meta"),
+                          samples=torch.zeros((1, 4, 6), dtype=torch.int64,
+                                              device="meta"))
 
 
 def test_kernel_build_flags():
@@ -189,7 +196,8 @@ def test_kernel_build_flags():
     assert "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     # kernel B3 (ops/fast.corner_score_auto) launches B1's source
-    assert sorted(kernels.SOURCES) == ["fast_score", "orb_desc_moments"]
+    assert sorted(kernels.SOURCES) == ["fast_score", "orb_desc_moments",
+                                       "pnp_ransac"]
     for src in kernels.SOURCES.values():
         text = (kernels.CSRC / src).read_text()
         assert "Replaces:" in text and "bounds it on the H100" in text

@@ -11,6 +11,10 @@ Tolerance: none for the kernels.  Scores, moments and descriptor bits are
 exact in both versions (min, max and differences of float32 values;
 integer-valued moments; the descriptor angle arithmetic is rounded
 identically), so the kernels must equal the plain versions bit for bit.
+Kernel pnp_ransac follows the plain chain's operations in the rounding
+that PyTorch and cuBLAS give them on the card (csrc/pnp_ransac.cu), and
+measured bit-equal to it in every case here, poses included: its
+tolerance is 0 too.
 The YOLOv8n module (cuDNN convolutions, not a kernel of the port) is held
 to the CPU within tests/test_torch_yolo.py's bound.
 ``chip_smoke.py`` repeats the comparison at the main path's 720p shapes.
@@ -27,7 +31,8 @@ from dynamic_visual_slam_tpu_torch.backend import ba, mapping
 from dynamic_visual_slam_tpu_torch.config import (CameraConfig, ORBConfig,
                                                   SLAMConfig)
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
-from dynamic_visual_slam_tpu_torch.frontend import orb, tracker
+from dynamic_visual_slam_tpu_torch.core import lie
+from dynamic_visual_slam_tpu_torch.frontend import orb, ransac, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
@@ -263,12 +268,15 @@ def test_device_stages_do_not_synchronise(sequence):
 
     run()                       # first use: builds, caches, library handles
     torch.cuda.synchronize()
+    before = kernels.launches["pnp_ransac"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         landmarks, res = run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    # both trackers and the verification went through the PnP kernel
+    assert kernels.launches["pnp_ransac"] > before
     assert bool(landmarks.active.any())
     assert float(res.final_cost) <= float(res.initial_cost)
 
@@ -441,20 +449,23 @@ def test_fleet_step_does_not_synchronise(sequence):
                      for _ in range(2))
     run(first)
     torch.cuda.synchronize()
+    before = kernels.launches["pnp_ransac"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         costs = run(second)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(costs).all())
+    # two PnP calls a scan step (frame to frame, anchored), three steps
+    assert kernels.launches["pnp_ransac"] - before == 2 * 3
 
 
 def _fleet_on_a_mesh(sequence, devices):
     """step_batch and run_ba of a 2-stream fleet on ``devices`` against the
     one-device fleet, both on tests/test_torch_mesh.py's keyed draws:
     positions within 1e-6 m, flags equal, B1 and B2 launched once a shard a
-    scan step, each shard's work on its own card, the outputs on the
-    first."""
+    scan step and the PnP kernel twice, each shard's work on its own card,
+    the outputs on the first."""
     from test_torch_mesh import keyed_sampler
     from dynamic_visual_slam_tpu_torch.parallel import mesh
     cfg = SLAMConfig().replace(camera=CAM)
@@ -469,8 +480,10 @@ def _fleet_on_a_mesh(sequence, devices):
     before = dict(kernels.launches)
     got = fleet.step_batch(g, d, s, auto_ba=False)
     torch.cuda.synchronize()
-    for name in kernels.SOURCES:
-        assert kernels.launches[name] - before.get(name, 0) == 2 * 2, name
+    for name, per_step in (("fast_score", 1), ("orb_desc_moments", 1),
+                           ("pnp_ransac", 2)):
+        assert kernels.launches[name] - before.get(name, 0) \
+            == per_step * 2 * 2, name
     assert fleet.stream_devices() == list(m.devices)
     assert [sh.tracker_states.q_wc.device for sh in fleet.shards] == \
         list(m.devices)
@@ -529,3 +542,113 @@ def test_overlapped_transport_equals_device_resident_batches(card):
     assert len(got_t) == 32
     np.testing.assert_array_equal(got_t, want_t)
     assert got_f == want_f
+
+
+# --- kernel pnp_ransac against pnp_ransac_plain ------------------------------
+PNP_K = Intrinsics(535.4, 539.2, 320.1, 247.6)
+
+
+def _pnp_scene(seed, b, n, valid=0.6, outliers=0.25):
+    """b two-view problems of n slots on the card: points in front of the
+    first camera, their noisy pixels in the second, a share moved far off,
+    a share masked out; the true motion as a prior."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -1.5, 1.0], [2, 1.5, 6.0], (b, n, 3)).astype(
+        np.float32)
+    rv = torch.from_numpy((rng.normal(size=(b, 3)) * 0.05).astype(np.float32))
+    tv = (rng.normal(size=(b, 3)) * 0.1).astype(np.float32)
+    r = lie.rodrigues(rv).numpy()
+    cam = np.einsum("bij,bnj->bni", r, pts) + tv[:, None]
+    kk = np.array([[PNP_K.fx, 0, PNP_K.cx], [0, PNP_K.fy, PNP_K.cy],
+                   [0, 0, 1]])
+    uv = ((cam / cam[..., 2:]) @ kk.T)[..., :2] \
+        + rng.normal(size=(b, n, 2)) * 0.5
+    off = rng.random((b, n)) < outliers
+    uv[off] += rng.uniform(10, 200, size=(int(off.sum()), 2))
+    mask = rng.random((b, n)) < valid
+    dev = torch.device("cuda")
+    return (torch.from_numpy(pts).to(dev),
+            torch.from_numpy(uv.astype(np.float32)).to(dev),
+            torch.from_numpy(mask).to(dev),
+            lie.so3_exp(rv).to(dev), torch.from_numpy(tv).to(dev))
+
+
+def _pnp_both(xyz, uv, mask, samples, prior, **kw):
+    extra = dict(prior_q=prior[0], prior_t=prior[1]) if prior else {}
+    before = kernels.launches["pnp_ransac"]
+    got = ransac.pnp_ransac(PNP_K, xyz, uv, mask, samples=samples, **extra,
+                            **kw)
+    want = ransac.pnp_ransac_plain(PNP_K, xyz, uv, mask, samples, **extra,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["pnp_ransac"] == before + 1
+    for name, g, w in zip(got._fields, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 1024), (8, 1024), (24, 1024),
+                                 (8, 512)])
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("threshold", [4.0, 12.0])
+def test_pnp_ransac_matches_plain_version(card, b, n, prior, threshold):
+    """The tracker's shapes (192 hypotheses, 10 refinement steps a pass):
+    poses, inlier masks, counts and flags bit-equal."""
+    xyz, uv, mask, q, t = _pnp_scene(b * 7 + n, b, n)
+    gen = torch.Generator(device=card).manual_seed(b + n)
+    samples = ransac.sample_indices(gen, 192, 6, mask.sum(-1))
+    got = _pnp_both(xyz, uv, mask, samples, (q, t) if prior else None,
+                    threshold=threshold, refine_iters=10)
+    assert bool(got.valid.all())
+
+
+@pytest.mark.cuda
+def test_pnp_ransac_unbatched_as_verify_loop(card):
+    """verify_loop's call: one unbatched problem of 512 slots, threshold
+    12, no prior."""
+    xyz, uv, mask, _, _ = _pnp_scene(5, 1, 512)
+    gen = torch.Generator(device=card).manual_seed(5)
+    samples = ransac.sample_indices(gen, 192, 6, mask[0].sum()[None])[0]
+    got = _pnp_both(xyz[0], uv[0], mask[0], samples, None, threshold=12.0)
+    assert got.q.shape == (4,) and got.inliers.shape == (512,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_masked", "five_valid",
+                                  "all_outliers"])
+def test_pnp_ransac_degenerate_inputs(card, case):
+    """Nothing to fit: equal exactly; fewer than 6 valid points is never
+    valid."""
+    xyz, uv, mask, q, t = _pnp_scene(11, 4, 1024)
+    if case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case == "five_valid":
+        mask = (torch.arange(1024, device=card) < 5).expand(4, -1).clone()
+    else:
+        uv = torch.rand(uv.shape, generator=torch.Generator(
+            device=card).manual_seed(1), device=card) * 1e4 - 5e3
+    gen = torch.Generator(device=card).manual_seed(3)
+    samples = ransac.sample_indices(gen, 192, 6, mask.sum(-1))
+    got = _pnp_both(xyz, uv, mask, samples, (q, t))
+    if case != "all_outliers":
+        assert not bool(got.valid.any())
+
+
+@pytest.mark.cuda
+def test_pnp_ransac_wrapper_rejects_what_the_kernel_does_not_take(card):
+    xyz, uv, mask, q, t = _pnp_scene(2, 2, 64)
+    smp = torch.zeros((2, 8, 6), dtype=torch.int64, device=card)
+    bad = [dict(xyz=xyz.double()), dict(uv=uv[..., :1]),
+           dict(mask=mask.to(torch.uint8)), dict(samples=smp.int()),
+           dict(samples=smp[:1]), dict(xyz=xyz.cpu()),
+           dict(prior_q=q), dict(prior_q=q[:, :3], prior_t=t),
+           dict(xyz=xyz[:, :0], uv=uv[:, :0], mask=mask[:, :0]),
+           dict(samples=torch.zeros((2, 50_000, 6), dtype=torch.int64,
+                                    device=card))]
+    for change in bad:
+        args = dict(xyz=xyz, uv=uv, mask=mask, samples=smp)
+        args.update(change)
+        with pytest.raises(ValueError):
+            ransac.pnp_ransac(PNP_K, **args)

@@ -364,9 +364,9 @@ def test_launch_counts_stay_exact_under_threads():
 
 
 def test_threads_reaching_an_unbuilt_kernel_build_it_once(monkeypatch):
-    """kernels.entry from 8 threads at once: one build and one load (a
-    stand-in build that sleeps and a stand-in library), one entry point
-    for all."""
+    """kernels.entry from 8 threads at once: one build (of every kernel,
+    their nvcc processes together) and one load (a stand-in build that
+    sleeps and a stand-in library), one entry point for all."""
     import types
     calls = []
 
@@ -390,5 +390,5 @@ def test_threads_reaching_an_unbuilt_kernel_build_it_once(monkeypatch):
     for t in threads:
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads)
-    assert calls == [["fast_score"]]
+    assert calls == [list(kernels.SOURCES)]
     assert len(got) == 8 and all(g is got[0] for g in got)

@@ -30,6 +30,7 @@ from dynamic_visual_slam_tpu_torch.config import SLAMConfig as PSLAMConfig
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics as PK
 from dynamic_visual_slam_tpu_torch.frontend import ransac as pr
 from dynamic_visual_slam_tpu_torch.ops import linalg_small as pls
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 torch.set_num_threads(2)
 CFG = SLAMConfig.preset("tum_fr3")
@@ -133,6 +134,32 @@ def test_pnp_equal_samples(with_prior):
     assert int(got.n_inliers) == int(want.n_inliers)
     np.testing.assert_allclose(got.q.numpy(), np.asarray(want.q), atol=TOL)
     np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), atol=TOL)
+
+
+@pytest.mark.parametrize("with_prior", [False, True])
+def test_pnp_takes_the_plain_route_on_the_cpu(with_prior):
+    """CPU tensors go through pnp_ransac_plain, bit for bit, and count their
+    problems under ransac.pnp.plain; the kernel's counter stays 0."""
+    scenes = [make_scene(s, outlier_frac=0.25) for s in (21, 22, 23)]
+    pts, uv2, m = (_t(np.stack([sc[i] for sc in scenes])) for i in (0, 2, 3))
+    smp = pr.sample_indices(torch.Generator().manual_seed(4), 64, 6,
+                            m.sum(-1))
+    prior = {}
+    if with_prior:
+        prior = dict(prior_q=torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 3),
+                     prior_t=torch.zeros(3, 3))
+    TRACER.enable(syncs=False)
+    try:
+        got = pr.pnp_ransac(KP, pts, uv2, m, threshold=4.0, samples=smp,
+                            **prior)
+    finally:
+        s = TRACER.disable()
+    want = pr.pnp_ransac_plain(KP, pts, uv2, m, smp, threshold=4.0, **prior)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert s.counters["ransac.pnp.plain"] == 3
+    assert s.counters.get("ransac.pnp.kernel", 0) == 0
+    assert s.counters["ransac.hypotheses.pnp"] == 3 * (64 + 2 * with_prior)
 
 
 def test_pnp_degenerate_all_masked():
