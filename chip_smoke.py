@@ -9,7 +9,8 @@ Phases (one JSON line each, prefixed "phase"):
   kernels  each kernel against its plain PyTorch version on the card at the
            main path's shapes (720p, batch 24, 8 levels, 1024 keypoints a
            frame; kernel B3 on one 1280x720 frame, and on a 479x641 frame
-           and fractional input; pnp_ransac at the tracker's shapes, 1024
+           and fractional input; orb_detect (D1) on B1's score maps at B =
+           1, 8 and 24; pnp_ransac at the tracker's shapes, 1024
            slots, 192 hypotheses and a prior, at B = 1, 8 and 24): results
            must be identical; device times
            by CUDA events; bounds from bytes and instruction counts at the
@@ -60,8 +61,8 @@ Phases (one JSON line each, prefixed "phase"):
            times the same calls); aggregate
            fps, BA rounds and per-stream counters; launches of one scan
            step (a step() call) under torch.profiler at B = 8 against B =
-           1 (stream 0's frame), which must stay below twice a shard's; B1
-           and B2 must launch once a shard a scan step;
+           1 (stream 0's frame), which must stay below twice a shard's; B1,
+           D1 and B2 must launch once a shard a scan step;
   fleet_mesh  the fleet on a two-shard mesh (the first two cards, else
            ["cuda:0", "cuda:0"]: two shards, a thread each, on one card)
            against the one-device fleet, both on keyed draws: 2 streams at
@@ -71,8 +72,8 @@ Phases (one JSON line each, prefixed "phase"):
            and 1 timed a fleet, then run_ba: per
            stream tests/test_parallel.py's bounds (all 2 cm and 0.5 deg,
            keyframes within 1; the first 3 frames within 1.5e-4 m, 1.5
-           times the card's measured split), BA costs finite, B1
-           and B2 once a shard a scan step; aggregate fps of both fleets
+           times the card's measured split), BA costs finite, B1,
+           D1 and B2 once a shard a scan step; aggregate fps of both fleets
            (does a thread a shard overlap the host's launch work?) and
            peak memory;
   snapshot place_small's fixture with place recognition on: the first
@@ -103,7 +104,7 @@ Phases (one JSON line each, prefixed "phase"):
            ORBvoc.txt fixture's descend on the card equal to the CPU's;
   train_vocab  place/pretrain.train_pretrained_vocabulary at the
            reference's width (k 10, depth 3, 500 a frame, 424x240, 12
-           scenes, 8 frames each, cut from 24): B1 and B2 once a frame,
+           scenes, 8 frames each, cut from 24): B1, D1 and B2 once a frame,
            retrieval accuracy at least the reference's less one scene;
   train_detector  semantic/train.train of YOLOv8n at 256, batch 16, 200
            steps on 128 rendered images (cut from 1500 and 384): the loss
@@ -118,7 +119,7 @@ Phases (one JSON line each, prefixed "phase"):
            three), the live view held 2 s (DVS_SERVE_HOLD_S) while a thread
            fetches /, /stats.json, /map.json and /frame.jpg: trace.json
            holds 20 "frame" begin/end pairs, /stats.json 20 frames,
-           /frame.jpg a JPEG; B1 and B2 once a frame; keyframes and
+           /frame.jpg a JPEG; B1, D1 and B2 once a frame; keyframes and
            positions (1e-6 m) equal to the command without --trace and
            --serve; then cli run --threaded at 720p on 12 frames, which must
            take the native runtime's NativeQueue (built with g++ on the
@@ -130,7 +131,7 @@ Phases (one JSON line each, prefixed "phase"):
            of the cached oracle trajectory (parity_sweep/oracle_cache),
            printed, not gated, with the fingerprint that file is keyed by
            and this run's config fingerprint: they differ, the cached
-           oracle comes from an older config; B1 and B2 once a frame; then
+           oracle comes from an older config; B1, D1 and B2 once a frame; then
            backend/ba.optimize on the card against oracle/ba_cpu.solve
            (f64, CPU) at the shipped scale (8 keyframes, 512 landmarks,
            tests/test_ba.py::make_problem(20, ...) on the port's Lie
@@ -144,12 +145,12 @@ Phases (one JSON line each, prefixed "phase"):
            anchored cells), the frame-to-frame cell printed, not gated;
            both cells with the keys of the reference's
            parity_sweep/cell_f120_640x480_anchored.json plus device and
-           power_limit; B1 and B2 once a frame of each run (2 x 120).
+           power_limit; B1, D1 and B2 once a frame of each run (2 x 120).
 The kernels' launch counters are reset just before main, fleet_small,
 fleet, fleet_mesh (each fleet), snapshot, tools, parity, sweep,
 place_frames, bench, dynamic_small (each condition), dynamic_frames and
-train_vocab are driven and read just after; B1 and B2 must have launched
-in each.  The kernels phase also holds B1 and B2 at the fleet's
+train_vocab are driven and read just after; every kernel but B3 must have
+launched in each.  The kernels phase also holds B1, D1 and B2 at the fleet's
 shape (8 frames) and prints how many blurred pixels differ between the
 card and the CPU.  Then the line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -190,7 +191,7 @@ from dynamic_visual_slam_tpu_torch.evaluation import parity_sweep
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac
 from dynamic_visual_slam_tpu_torch.io import synthetic, trajectory
 from dynamic_visual_slam_tpu_torch.models import convert_ultralytics, yolov8
-from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
+from dynamic_visual_slam_tpu_torch.ops import descriptors, detect, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.parallel.mesh import (SLAMFleet, _gather,
                                                          make_mesh,
@@ -224,14 +225,17 @@ ISSUE_RATES = {"fmin": 1.6668e13, "fadd": 3.2570e13, "min_s16x2": 1.6685e13,
 PIPE = {"fmin": "alu", "min_s16x2": "alu", "min3_s16x2": "alu",
         "int32": "alu", "fadd": "fma"}
 HIDE_HOST_CYCLES = 40_000_000  # cuda_ms's wait: about 20 ms at 1.98 GHz
-# B1 and B2 launch once a frame (a scan step, a shard) wherever ORB runs;
-# kernel pnp_ransac once a PnP call: twice a tracked frame with the anchor
-# (the fleet's), once without, and once a loop or relocalization check
-FRAME_KERNELS = ("fast_score", "orb_desc_moments")
+# B1, D1 and B2 launch once a frame (a scan step, a shard) wherever ORB
+# runs; kernel pnp_ransac once a PnP call: twice a tracked frame with the
+# anchor (the fleet's), once without, and once a loop or relocalization check
+FRAME_KERNELS = ("fast_score", "orb_detect", "orb_desc_moments")
 PNP_PER_STEP = 2
 # kernels phase, pnp_ransac: the tracker's shapes (1024 slots, 192
 # hypotheses, a prior, 10 refinement steps a pass) at these batches
 PNP_BATCHES = (1, 8, 24)
+# kernels phase, orb_detect: 720p frames a call (1 as process, 8 as the
+# fleet's scan step, 24 as process_batch)
+DETECT_BATCHES = (1, 8, 24)
 BATCH = 24
 WARMUP_BATCHES = 6             # 144 frames as bench.py: keyframes and a BA round
 TIMED_BATCHES = 5              # 120 frames (bench.py: 240), BA ticks twice
@@ -511,6 +515,30 @@ def phase_kernels(frames, cfg: SLAMConfig):
     b3_plain = cuda_ms(lambda: fast.corner_score(img))
     b3_bound, b3_by = bound(8 * img.numel(), fast_instr([img]))
 
+    # --- D1: the keypoints of all B x 8 levels, at B = 1, 8 and 24 ---------
+    spec = detect.detect_spec(cfg.orb)
+    d1_rows, d1_err = {}, 0.0
+    for b in DETECT_BATCHES:
+        sc = [s[:b].contiguous() for s in got]
+        got_d = detect.detect_levels(sc, spec)
+        want_d = detect.detect_levels_plain(sc, spec)
+        torch.cuda.synchronize()
+        for key in detect.SLOT_KEYS:
+            g, w = got_d[key], want_d[key]
+            d1_err = max(d1_err, float((g.double() - w.double()).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"orb_detect differs from its plain version at B = {b}: "
+                     f"{key}, {int((g != w).sum())} values")
+        n_px_b = sum(s.numel() for s in sc)
+        # the score maps read once; 25 bytes a slot written (uv 8, response,
+        # ys, xs, octave 4 each, mask 1); one comparison a pixel
+        bnd, by = bound(4 * n_px_b + 25 * b * spec.n_out, {"fadd": n_px_b})
+        d1_rows[b] = dict(
+            max_abs_err=d1_err, keypoints=int(got_d["mask"].sum()),
+            ms=cuda_ms(lambda: detect.detect_levels(sc, spec)),
+            plain_ms=cuda_ms(lambda: detect.detect_levels_plain(sc, spec)),
+            bound_ms=bnd, bound_by=by)
+
     # --- B2: moments + rBRIEF bits of all B x 1024 keypoint slots ----------
     _, inputs = orb.detect_batch(levels, got, cfg.orb)
     bits, m10, m01 = descriptors.descriptors_moments(*inputs)
@@ -577,6 +605,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
         frames=FLEET_STREAMS, px=sum(lv.numel() for lv in lv8),
         slots=int(in8.level.numel()),
         fast_score_ms=cuda_ms(lambda: fields.fast_score_batch(lv8)),
+        orb_detect_ms=d1_rows[FLEET_STREAMS]["ms"],
         orb_desc_moments_ms=cuda_ms(
             lambda: descriptors.descriptors_moments(*in8)))
     # --- the rounded blur (torch.matmul): card against the CPU -------------
@@ -600,6 +629,16 @@ def phase_kernels(frames, cfg: SLAMConfig):
              max_abs_err=b2_err, ms=b2_ms, plain_ms=b2_plain,
              bound_ms=b2_bound, bound_by=b2_by, library_ms=None,
              shape=f"{n_kp} keypoints"),
+        dict(name=detect.KERNEL, route="cuda",
+             source="dynamic_visual_slam_tpu_torch/csrc/orb_detect.cu",
+             replaces="none: dynamic_visual_slam_tpu/frontend/orb.py "
+                      "detect_level is plain jnp",
+             max_abs_err=d1_err, ms=d1_rows[BATCH]["ms"],
+             plain_ms=d1_rows[BATCH]["plain_ms"],
+             bound_ms=d1_rows[BATCH]["bound_ms"],
+             bound_by=d1_rows[BATCH]["bound_by"], library_ms=None,
+             shape=f"{BATCH} frames x {len(levels)} levels of scores, "
+                   f"{spec.n_out} slots a frame"),
         dict(name=ransac.KERNEL, route="cuda",
              source="dynamic_visual_slam_tpu_torch/csrc/pnp_ransac.cu",
              replaces="none: dynamic_visual_slam_tpu/frontend/ransac.py "
@@ -619,6 +658,7 @@ def phase_kernels(frames, cfg: SLAMConfig):
     ]
     emit("kernels", kernels=rows, fast_instr=fast_instr(levels),
          fleet_shape=fleet_shape, pnp_ransac_by_batch=pnp_rows,
+         orb_detect_by_batch=d1_rows,
          blur_card_vs_cpu=dict(pixels=n_px, differ=blur_raw,
                                differ_rounded=blur_round))
     return rows
@@ -1831,7 +1871,7 @@ def phase_fleet_mesh(frames, cfg: SLAMConfig, device="cuda"):
     bounds (all 2 cm, 0.5 deg; its first 3 frames' 1e-5 m becomes
     FLEET_MESH_FIRST3_M on the card, where the split changes the tracker's
     batched arithmetic), keyframes within 1,
-    BA costs finite; the mesh fleet's B1 and B2 each once a shard a scan
+    BA costs finite; the mesh fleet's B1, D1 and B2 each once a shard a scan
     step; aggregate fps of both fleets and the peak memory."""
     mesh = two_shard_mesh(device)
     shards = mesh.size
@@ -2324,7 +2364,7 @@ def phase_sweep(device="cuda"):
     """evaluation/parity_sweep.main at 640x480, one seed, 120 frames, both
     modes, into a fresh build/sweep_<device>/: the anchored cell's mean
     ATE at most the oracle's, both cells with the reference cell's keys
-    plus device and power_limit, B1 and B2 once a frame of each run."""
+    plus device and power_limit, B1, D1 and B2 once a frame of each run."""
     out_dir = os.path.join(ROOT, "build", f"sweep_{device}")
     shutil.rmtree(out_dir, ignore_errors=True)
     kernels.reset_launch_counts()

@@ -13,8 +13,8 @@ once where the plain PyTorch versions round twice, which would flip the
 ``rint`` of a rotated BRIEF offset.
 
 ``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/fields.py``, ``ops/descriptors.py`` and ``frontend/ransac.py``
-(through ``count``, under a
+``ops/fields.py``, ``ops/descriptors.py``, ``ops/detect.py`` and
+``frontend/ransac.py`` (through ``count``, once a call, under a
 lock: the fleet's shards launch from one thread each); ``chip_smoke.py``
 resets it before it drives the main path and reads it after.  ``entry``
 builds and loads under a lock too, so threads that reach an unbuilt kernel
@@ -46,6 +46,14 @@ The kernels (each source's header note has the detail):
   DLT at a time in shared memory, the scoring keeps points in registers
   and counts inliers by warp ballot, and Gauss-Newton reduces its float64
   normal equations over the block.
+- ``orb_detect.cu`` (D1): replaces no Pallas kernel (the reference's
+  ``frontend/orb.py::detect_level`` is plain jnp); it runs the port's plain
+  detection, some 1,400 tiny PyTorch launches a call at 8 levels, as two:
+  a warp a 35-px cell finds the peaks, applies the FAST 20 -> 7 fallback
+  and keeps the cell's top 8 packed keys, then a block a (frame, level)
+  selects the level's quota by a radix select and ranks it.  Bound by
+  device memory (each score read once), far below the host's launch cost
+  it removes.
 - ``persistent.cuh``: the grid size of a persistent kernel, shared by B1
   and B2.
 """
@@ -69,6 +77,7 @@ SOURCES = {
     "fast_score": "fast_score.cu",
     "orb_desc_moments": "orb_desc_moments.cu",
     "pnp_ransac": "pnp_ransac.cu",
+    "orb_detect": "orb_detect.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
@@ -81,10 +90,12 @@ ARGTYPES = {
     "orb_desc_moments": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                          _P, _P, _P],
     "pnp_ransac": [_P] * 13 + [_I] * 5 + [_F] * 7 + [_I, _P],
+    "orb_detect": [_P] * 5 + [_I, _I, _F, _F, _I] + [_P] * 8,
 }
 ENTRY = {"fast_score": "fast_score_levels",
          "orb_desc_moments": "orb_desc_moments",
-         "pnp_ransac": "pnp_ransac"}
+         "pnp_ransac": "pnp_ransac",
+         "orb_detect": "orb_detect"}
 
 launches: collections.Counter = collections.Counter()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -187,3 +198,9 @@ def pointer_array(values) -> ctypes.Array:
 def int_array(values) -> ctypes.Array:
     """Host array of C ints for a C entry point."""
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+def float_array(values) -> ctypes.Array:
+    """Host array of C floats (each value rounded to float32) for a C entry
+    point."""
+    return (ctypes.c_float * len(values))(*[float(v) for v in values])

@@ -25,14 +25,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from dynamic_visual_slam_tpu_torch import bench, cli, convert, kernels
 from dynamic_visual_slam_tpu_torch.backend import ba, mapping
-from dynamic_visual_slam_tpu_torch.config import CameraConfig, SLAMConfig
+from dynamic_visual_slam_tpu_torch.config import (CameraConfig, ORBConfig,
+                                                  SLAMConfig)
 from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.evaluation import (loop720p, ood,
                                                       parity_sweep)
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
 from dynamic_visual_slam_tpu_torch.models import yolov8
-from dynamic_visual_slam_tpu_torch.ops import descriptors, fields
+from dynamic_visual_slam_tpu_torch.ops import descriptors, detect, fields
 from dynamic_visual_slam_tpu_torch.parallel import mesh
 from dynamic_visual_slam_tpu_torch.pipeline import slam as pslam
 from dynamic_visual_slam_tpu_torch.pipeline import snapshot, wire
@@ -177,6 +178,8 @@ def test_wrappers_take_the_plain_path_only_on_the_cpu():
     levels = [torch.zeros((1, 40, 40), device="meta")]
     with pytest.raises(ValueError, match="unsupported device"):
         fields.fast_score_batch(levels)
+    with pytest.raises(ValueError, match="unsupported device"):
+        detect.detect_levels(levels, detect.detect_spec(ORBConfig(n_levels=1)))
     pad = [torch.zeros((1, 78, 78), device="meta")]
     idx = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -197,7 +200,7 @@ def test_kernel_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     # kernel B3 (ops/fast.corner_score_auto) launches B1's source
     assert sorted(kernels.SOURCES) == ["fast_score", "orb_desc_moments",
-                                       "pnp_ransac"]
+                                       "orb_detect", "pnp_ransac"]
     for src in kernels.SOURCES.values():
         text = (kernels.CSRC / src).read_text()
         assert "Replaces:" in text and "bounds it on the H100" in text

@@ -11,6 +11,9 @@ Tolerance: none for the kernels.  Scores, moments and descriptor bits are
 exact in both versions (min, max and differences of float32 values;
 integer-valued moments; the descriptor angle arithmetic is rounded
 identically), so the kernels must equal the plain versions bit for bit.
+Kernel D1 (orb_detect) outputs integers, floats holding integers and one
+float32 product a coordinate, as the plain detection does: it must equal
+``ops/detect.detect_levels_plain`` bit for bit too.
 Kernel pnp_ransac follows the plain chain's operations in the rounding
 that PyTorch and cuBLAS give them on the card (csrc/pnp_ransac.cu), and
 measured bit-equal to it in every case here, poses included: its
@@ -34,11 +37,12 @@ from dynamic_visual_slam_tpu_torch.core.camera import Intrinsics
 from dynamic_visual_slam_tpu_torch.core import lie
 from dynamic_visual_slam_tpu_torch.frontend import orb, ransac, tracker
 from dynamic_visual_slam_tpu_torch.io import synthetic
-from dynamic_visual_slam_tpu_torch.ops import descriptors, fast, fields
+from dynamic_visual_slam_tpu_torch.ops import descriptors, detect, fast, fields
 from dynamic_visual_slam_tpu_torch.ops import image as imops
 from dynamic_visual_slam_tpu_torch.pipeline import slam
 from dynamic_visual_slam_tpu_torch.place import bow
 from dynamic_visual_slam_tpu_torch.semantic.classes import filtered_mask
+from dynamic_visual_slam_tpu_torch.utils.profiling import TRACER
 
 torch.set_num_threads(2)
 CAM = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
@@ -652,3 +656,121 @@ def test_pnp_ransac_wrapper_rejects_what_the_kernel_does_not_take(card):
         args.update(change)
         with pytest.raises(ValueError):
             ransac.pnp_ransac(PNP_K, **args)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D1 (ops/detect.detect_levels): the keypoints of every level
+# ---------------------------------------------------------------------------
+
+def _detect_both(scores, cfg=CFG):
+    """D1 against its plain version on the card: every slot tensor equal."""
+    spec = detect.detect_spec(cfg)
+    before = kernels.launches["orb_detect"]
+    got = detect.detect_levels(scores, spec)
+    want = detect.detect_levels_plain(scores, spec)
+    torch.cuda.synchronize()
+    assert kernels.launches["orb_detect"] == before + 1
+    assert set(got) == set(want)
+    for k in detect.SLOT_KEYS:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
+def _scores_of(grays):
+    levels = [lv.contiguous() for lv in imops.build_pyramid(
+        grays, CFG.n_levels, CFG.scale_factor)]
+    return fields.fast_score_batch(levels)
+
+
+def _rendered(card, w, h, n, seed):
+    cam = CameraConfig(width=w, height=h, fx=0.8 * w, fy=0.8 * w,
+                       cx=(w - 1) / 2, cy=(h - 1) / 2)
+    return torch.from_numpy(np.stack([g for g, *_ in synthetic.generate_sequence(
+        cam, n, seed=seed)]).astype(np.float32)).to(card)
+
+
+@pytest.fixture(scope="module")
+def frames_720p(card):
+    """24 distinct 720p frames: 6 rendered ones and their mirror images."""
+    x = _rendered(card, 1280, 720, 6, seed=3)
+    return torch.cat([x, x.flip(-1), x.flip(-2), x.flip(-1, -2)]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8, 24])
+def test_orb_detect_matches_plain_at_720p(frames_720p, b):
+    got = _detect_both(_scores_of(frames_720p[:b]))
+    assert got["uv"].shape == (b, CFG.max_keypoints, 2)
+    assert int(got["mask"].sum()) > b * CFG.n_features // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(640, 480), (424, 240), (96, 64)])
+def test_orb_detect_matches_plain_at_other_sizes(card, w, h):
+    """640x480 (TUM), 424x240 (vocabulary training, the tools) and a tiny
+    frame whose coarse levels hold fewer candidates than their quotas."""
+    scores = _scores_of(_rendered(card, w, h, 1, seed=5))
+    _detect_both(scores)
+    short = [q > 8 * hc * wc for q, (hc, wc) in zip(
+        detect.detect_spec(CFG).quotas,
+        (detect.cell_grid(*s.shape[1:]) for s in scores))]
+    assert any(short) == ((w, h) == (96, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero", "constant", "weak", "dense255",
+                                  "random"])
+def test_orb_detect_matches_plain_on_made_maps(card, case):
+    """Score maps made to reach each branch, 3 frames at 424x240's levels:
+    no peak; all ties (every pixel a peak and its cell's best); only weak
+    corners (every score <= 20, so every cell falls back to 7); dense 255s;
+    random bytes (cells with and without a strong corner side by side)."""
+    rng = np.random.default_rng(17)
+    shapes = imops.pyramid_shapes(240, 424, CFG.n_levels, CFG.scale_factor)
+    make = {"zero": lambda s: np.zeros(s),
+            "constant": lambda s: np.full(s, 10.0),
+            "weak": lambda s: rng.integers(0, 21, s),
+            "dense255": lambda s: np.full(s, 255.0),
+            "random": lambda s: rng.integers(0, 256, s)}[case]
+    scores = [torch.from_numpy(make((3,) + s).astype(np.float32)).to(card)
+              for s in shapes]
+    got = _detect_both(scores)
+    n = int(got["mask"].sum())
+    assert (n == 0) == (case == "zero")
+
+
+@pytest.mark.cuda
+def test_extract_batch_with_d1_equals_the_plain_detection(frames_720p,
+                                                          monkeypatch):
+    """extract_batch's whole Keypoints with D1 against the same call with
+    the plain detection on the card; the tracer counts B x 8 levels on the
+    kernel's route and none on the plain one."""
+    imgs = frames_720p[:8]
+    before = kernels.launches["orb_detect"]
+    TRACER.enable(syncs=False)
+    got = orb.extract_batch(imgs, CFG)
+    torch.cuda.synchronize()
+    s = TRACER.disable()
+    assert kernels.launches["orb_detect"] == before + 1
+    assert s.counters["extract.detect.kernel"] == 8 * CFG.n_levels
+    assert s.counters.get("extract.detect.plain", 0) == 0
+    monkeypatch.setattr(detect, "detect_levels", detect.detect_levels_plain)
+    want = orb.extract_batch(imgs, CFG)
+    torch.cuda.synchronize()
+    for name in orb.Keypoints._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_orb_detect_wrapper_rejects_what_the_kernel_does_not_take(card):
+    spec = detect.detect_spec(ORBConfig(n_features=40, n_levels=2,
+                                        max_keypoints=48))
+    good = [torch.zeros(2, 24, 32, device=card),
+            torch.zeros(2, 20, 27, device=card)]
+    for bad in ([good[0], good[1].cpu()], [good[0].double(), good[1]],
+                [good[0][0], good[1]], [good[0][:, :, ::2], good[1]],
+                good[:1]):
+        with pytest.raises(ValueError):
+            detect.detect_levels(bad, spec)
+    _detect_both(good, ORBConfig(n_features=40, n_levels=2, max_keypoints=48))

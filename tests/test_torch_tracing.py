@@ -227,7 +227,8 @@ def _same(a, b):
 
 TRACKER = {"track", "track.prep", "track.match", "track.ransac.fm",
            "track.ransac.pnp", "track.ransac.anchor"}
-EXTRACT = {"extract", "extract.pyramid", "extract.b1", "extract.b2"}
+EXTRACT = {"extract", "extract.pyramid", "extract.b1", "extract.detect",
+           "extract.b2"}
 BA = {"ba", "ba.window", "ba.optimize", "ba.apply", "ba.prune"}
 
 
