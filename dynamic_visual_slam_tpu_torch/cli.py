@@ -1,6 +1,7 @@
 """Command-line entry point of the PyTorch port: the reference package's
-``run``, ``parity``, ``bench``, ``info``, ``train-detector`` and
-``train-vocab``.
+``run``, ``parity``, ``info``, ``train-detector`` and ``train-vocab``
+(the reference's ``bench`` is not ported: ``benchmark/run.py`` measures
+the port).
 
     python -m dynamic_visual_slam_tpu_torch.cli run --source synthetic \
         --frames 120
@@ -10,7 +11,6 @@
         --preset tum_fr3 --detector none
     python -m dynamic_visual_slam_tpu_torch.cli run --trace --serve 8080
     python -m dynamic_visual_slam_tpu_torch.cli parity --frames 240 --seeds 5
-    python -m dynamic_visual_slam_tpu_torch.cli bench
 
     python -m dynamic_visual_slam_tpu_torch.cli info --preset tum_fr3
     python -m dynamic_visual_slam_tpu_torch.cli train-detector --steps 1500 \
@@ -18,11 +18,9 @@
     python -m dynamic_visual_slam_tpu_torch.cli train-vocab \
         --out orbvoc_synth.npz
 
-``run``, ``parity``, ``bench``, ``train-detector`` and ``train-vocab`` run
-on the card (``--device cuda``, the default; they raise without one) unless
-``--device cpu`` is given.  ``bench`` runs the port's headline benchmark
-(``dynamic_visual_slam_tpu_torch/bench.py``, the five stages of the
-reference's ``bench.py``) and prints its JSON lines.  ``train-detector`` writes the reference's YOLOv8 npz with
+``run``, ``parity``, ``train-detector`` and ``train-vocab`` run on the
+card (``--device cuda``, the default; they raise without one) unless
+``--device cpu`` is given.  ``train-detector`` writes the reference's YOLOv8 npz with
 the input size embedded (its training images render in up to 8 worker
 processes), ``train-vocab`` its vocabulary npz; both packages read both.
 ``run`` writes (``--out-dir``) frontend and
@@ -456,11 +454,6 @@ def cmd_parity(args, out: Optional[dict] = None) -> int:
     return 0
 
 
-def cmd_bench(args, out: Optional[dict] = None) -> int:
-    from dynamic_visual_slam_tpu_torch import bench
-    return bench.main(args.device)
-
-
 def cmd_info(args, out: Optional[dict] = None) -> int:
     print(_build_config(args).to_json())
     return 0
@@ -619,11 +612,6 @@ def main(argv: Optional[list] = None, out: Optional[dict] = None) -> int:
     pp.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     pp.set_defaults(fn=cmd_parity)
-
-    pb = sub.add_parser("bench", help="run the headline benchmark")
-    pb.add_argument("--device", default="cuda",
-                    help="'cuda' (default; raises without a card) or 'cpu'")
-    pb.set_defaults(fn=cmd_bench)
 
     pt = sub.add_parser("train-detector",
                         help="train YOLOv8n on the synthetic dynamic world "

@@ -2,8 +2,10 @@
 not its evaluation scripts (``scripts/torch_parity_sweep.py``,
 ``torch_loop720p.py``, ``torch_ood_eval.py``) imports JAX, optax, anything
 of the JAX package or the reference's root ``bench`` module; its entry
-points (``bench``, ``cli bench`` and the three evaluations among them)
-default to the card and raise without one; its kernels are built without fast math; and its
+points (the three evaluations among them) default to the card and raise
+without one; it reads no environment variable but ``CUDA_HOME``,
+``DVS_SERVE_HOLD_S`` and ``DVS_ORACLE_DEBUG``; its kernels are built
+without fast math; and its
 device stages (extraction, both trackers, keyframe insert, BA, BoW add and
 query, loop verification, the pose-graph loop correction, the detector's
 network and NMS, the fleet's step, step_batch, BA and detector) never read
@@ -23,7 +25,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from dynamic_visual_slam_tpu_torch import bench, cli, convert, kernels
+from dynamic_visual_slam_tpu_torch import convert, kernels
 from dynamic_visual_slam_tpu_torch.backend import ba, mapping
 from dynamic_visual_slam_tpu_torch.config import (CameraConfig, ORBConfig,
                                                   SLAMConfig)
@@ -48,6 +50,9 @@ PORT = ROOT / "dynamic_visual_slam_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "dynamic_visual_slam_tpu", "bench"}
 EVAL_SCRIPTS = ("torch_parity_sweep.py", "torch_loop720p.py",
                 "torch_ood_eval.py")
+# the nvcc location (kernels.py), the live view's hold after a run (cli
+# run --serve) and the CPU oracle's trace of its IRLS rounds
+ENVIRONMENT = {"CUDA_HOME", "DVS_SERVE_HOLD_S", "DVS_ORACLE_DEBUG"}
 
 
 def _port_files():
@@ -81,7 +86,7 @@ def test_no_jax_or_reference_imports():
                 "models/convert_ultralytics.py", "place/pretrain.py",
                 "semantic/train.py", "native/__init__.py", "native/build.py",
                 "utils/serve.py", "oracle/ba_cpu.py",
-                "oracle/pipeline_cpu.py", "bench.py",
+                "oracle/pipeline_cpu.py",
                 "evaluation/__init__.py", "evaluation/parity_sweep.py",
                 "evaluation/loop720p.py", "evaluation/ood.py"):
         assert PORT / new in files, new
@@ -119,11 +124,47 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         SLAMSystem(SLAMConfig().replace(
             camera=SLAMConfig().camera.scaled(160, 120)))
-    # the headline benchmark: before it builds a frame
-    with pytest.raises(RuntimeError, match="cuda"):
-        bench.main()
-    with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["bench"])
+
+
+def _environment_reads(path: Path):
+    """Names the file reads from the environment (``os.environ[...]``,
+    ``os.environ.get``/``pop``/``setdefault``, ``os.getenv``); a name that
+    is not a constant, or any other use of ``os.environ``, as "?"."""
+    def is_environ(node):
+        return isinstance(node, ast.Attribute) and node.attr == "environ"
+
+    names, environ_reads, environ_uses = [], 0, 0
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        environ_uses += is_environ(node)
+        key = None
+        if isinstance(node, ast.Subscript) and is_environ(node.value):
+            key, environ_reads = node.slice, environ_reads + 1
+        elif isinstance(node, ast.Call) and isinstance(node.func,
+                                                       ast.Attribute):
+            f = node.func
+            if f.attr in ("get", "pop", "setdefault") and is_environ(
+                    f.value):
+                environ_reads += 1
+            elif f.attr != "getenv":
+                continue
+            key = node.args[0] if node.args else None
+        else:
+            continue
+        names.append(key.value if isinstance(key, ast.Constant)
+                     and isinstance(key.value, str) else "?")
+    return names + ["?"] * (environ_uses - environ_reads)
+
+
+def test_the_port_reads_only_documented_environment_variables():
+    """No knob of the port's own changes what it computes or measures: the
+    three names it reads are listed above and in README.md."""
+    reads = {str(f.relative_to(ROOT)): sorted(set(_environment_reads(f)))
+             for f in sorted(PORT.rglob("*.py"))}
+    seen = set().union(*reads.values())
+    assert seen == ENVIRONMENT, {f: r for f, r in reads.items()
+                                 if set(r) - ENVIRONMENT}
+    readme = (ROOT / "README.md").read_text()
+    assert all(name in readme for name in ENVIRONMENT)
 
 
 def test_evaluation_scripts_import_only_the_port_and_default_to_the_card(

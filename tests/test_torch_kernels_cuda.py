@@ -20,7 +20,9 @@ measured bit-equal to it in every case here, poses included: its
 tolerance is 0 too.
 The YOLOv8n module (cuDNN convolutions, not a kernel of the port) is held
 to the CPU within tests/test_torch_yolo.py's bound.
-``chip_smoke.py`` repeats the comparison at the main path's 720p shapes.
+``chip_smoke.py``'s kernels phase repeats the comparison at the main
+path's 720p shapes and times each kernel for the kernel table; the port's
+speed end to end is measured by ``benchmark/run.py`` alone.
 """
 
 from pathlib import Path
@@ -516,24 +518,24 @@ def test_fleet_on_two_cards(sequence):
 
 
 @pytest.mark.cuda
-def test_overlapped_transport_equals_device_resident_batches(card):
-    """Stage 2 of the port's bench: batches staged by bench.overlapped
-    (page-locked ring, copy stream, the consumer's stream waiting on the
-    copy's event) give the same poses and flags, bit for bit, as batches
-    copied to the card before the loop (320x240, 4 batches of 8, place
+def test_batches_on_the_card_equal_host_arrays(card):
+    """process_batch fed batches already on the card gives the poses and
+    flags, bit for bit, of the same batches as host arrays (320x240, the
+    6-frame cycle of seed 3, 4 batches of 8, sync_every 3, place
     recognition off)."""
-    from dynamic_visual_slam_tpu_torch import bench
-    cfg = SLAMConfig().replace(camera=CAM)
-    np_frames = bench.native_frames(cfg)
-    starts = range(0, 32, 8)
-    dev = torch.device("cuda")
-
-    def batch(i0):
-        return bench.batch_at(np_frames, i0, 8)
+    cycle = [(g.astype(np.uint8), (d * 1000.0).astype(np.uint16))
+             for g, d, _, _, _ in synthetic.generate_sequence(CAM, 6, seed=3)]
+    batches = []
+    for i0 in range(0, 32, 8):
+        idx = [(i0 + j) % 6 for j in range(8)]
+        batches.append((np.stack([cycle[i][0] for i in idx]),
+                        np.stack([cycle[i][1] for i in idx]),
+                        (i0 + np.arange(8)) / 30.0))
 
     def run(batches):
-        s = slam.SLAMSystem(cfg, enable_place_recognition=False,
-                            sync_every=3, device=dev)
+        s = slam.SLAMSystem(SLAMConfig().replace(camera=CAM),
+                            enable_place_recognition=False, sync_every=3,
+                            device="cuda")
         for gs, ds, tss in batches:
             s.process_batch(gs, ds, tss)
         s.finalize()
@@ -541,8 +543,10 @@ def test_overlapped_transport_equals_device_resident_batches(card):
         return s.frontend_trajectory()[2], [
             (f.is_keyframe, f.tracking_ok) for f in s.trajectory]
 
-    want_t, want_f = run([bench._on_device(batch(i0), dev) for i0 in starts])
-    got_t, got_f = run(bench.overlapped(batch, starts, dev))
+    want_t, want_f = run(batches)
+    got_t, got_f = run([(torch.from_numpy(gs).cuda(),
+                         torch.from_numpy(ds).cuda(), tss)
+                        for gs, ds, tss in batches])
     assert len(got_t) == 32
     np.testing.assert_array_equal(got_t, want_t)
     assert got_f == want_f

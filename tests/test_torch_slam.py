@@ -2,7 +2,8 @@
 ``SLAMSystem.process_batch`` (ORB → tracker → keyframe inserts → periodic BA
 with tracker feedback), on the pipeline fixture of tests/test_pipeline.py
 (320x240, 70 frames, seed 11), in batches of 7, place recognition off;
-and its return cadence (``sync_every`` 1 and 2) against the reference's.
+its return cadence (``sync_every`` 1, 2 and 3) against the reference's;
+and both systems on the root ``bench.py``'s six-frame cycle (below).
 
 Both systems see the same frames and the same RANSAC draws (the port gets
 the reference's own threefry samples through ``sampler=``).
@@ -32,7 +33,29 @@ it; from the port's own state after frame 13 it lands 31.7 mm apart.  The
 port's summation moves these figures: with every sum in float32, as in the
 reference, the slice gave 6.24 mm RMS on that host and 2.2 mm RMS on
 another x86 host; the threshold cases that flip are other ones.
-The bounds are those worst values times 1.5: 8 mm RMS, 48 mm at worst."""
+The bounds are those worst values times 1.5: 8 mm RMS, 48 mm at worst.
+
+The cycle runs: the root ``bench.py``'s 6-frame sequence (seed 3) at
+160x120 in the camera's native formats (uint8 gray, uint16 millimetre
+depth), played round in batches of 24 with ``sync_every`` 3 and BA every
+0.7 s of input time instead of 2 s (a round ends every batch of 0.8 s): 48
+frames, ``finalize``, 24 more, ``finalize``; with place recognition off
+(the port's own draws) and on (the shipped vocabulary, the reference's
+draws through ``sampler=``).  Tolerances, and why:
+- every frame is emitted, on the reference's cadence, and BA rounds are
+  equal: both are set by input time alone;
+- keyframes within 1, tests/test_parallel.py's keyframe bound: an
+  F-RANSAC inlier on the epipolar threshold can flip the keyframe
+  decision of a frame (tests/test_torch_tracker.py);
+- loop checks (candidates and relocalization records) equal: a check
+  needs a BoW candidate ten keyframes back, which a one-keyframe
+  difference does not create on this cycle.
+The port's run with place recognition off is also held bit-equal to the
+same batches handed over as tensors."""
+
+import dataclasses
+import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,6 +76,14 @@ CFG = SLAMConfig().replace(camera=CAM)
 PCFG = PSLAMConfig.from_dict(CFG.to_dict())
 N_FRAMES = 70
 B = 7
+VOCAB = str(Path(__file__).resolve().parent.parent / "assets"
+            / "orbvoc_synth.npz")
+CYCLE_CAM = CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
+                         cx=79.5, cy=59.5)
+CYCLE_CFG = SLAMConfig().replace(camera=CYCLE_CAM, ba=dataclasses.replace(
+    SLAMConfig().ba, period_s=0.7))
+CYCLE_PCFG = PSLAMConfig.from_dict(CYCLE_CFG.to_dict())
+CYCLE_BATCH, CYCLE_SYNC, CYCLE_PARTS = 24, 3, (48, 24)
 
 
 @pytest.fixture(scope="module")
@@ -139,7 +170,7 @@ def test_ba_and_map_match_reference(runs):
     assert n_port == pytest.approx(n_ref, rel=0.02), (n_port, n_ref)
 
 
-@pytest.mark.parametrize("sync_every", [1, 2])
+@pytest.mark.parametrize("sync_every", [1, 2, 3])
 def test_return_cadence_matches_reference(sync_every):
     """Which frames each process_batch call returns, and after finalize()
     the whole trajectory in order, as the reference's on its cadence."""
@@ -160,9 +191,97 @@ def test_return_cadence_matches_reference(sync_every):
         want.append([f.timestamp for f in ref.process_batch(
             grays[sl], depths[sl], stamps[sl])])
     assert got == want
-    assert [len(g) for g in got] == ([0, 7, 7, 7, 7] if sync_every == 1
-                                     else [0, 0, 14, 0, 14])
+    assert [len(g) for g in got] == {1: [0, 7, 7, 7, 7],
+                                     2: [0, 0, 14, 0, 14],
+                                     3: [0, 0, 0, 21, 0]}[sync_every]
     port.finalize()
     ref.finalize()
     assert [f.timestamp for f in port.trajectory] == \
         [f.timestamp for f in ref.trajectory] == list(stamps)
+
+
+def cycle_batches():
+    """The cycle's batches of CYCLE_BATCH frames, for both parts: (uint8
+    grays, uint16 depths, 30 fps stamps)."""
+    cycle = [(g.astype(np.uint8), (d * 1000.0).astype(np.uint16))
+             for g, d, _, _, _ in synthetic.generate_sequence(CYCLE_CAM, 6,
+                                                              seed=3)]
+    for i0 in range(0, sum(CYCLE_PARTS), CYCLE_BATCH):
+        idx = [(i0 + j) % len(cycle) for j in range(CYCLE_BATCH)]
+        yield (np.stack([cycle[i][0] for i in idx]),
+               np.stack([cycle[i][1] for i in idx]),
+               (i0 + np.arange(CYCLE_BATCH)) / 30.0)
+
+
+@functools.lru_cache(maxsize=None)
+def cycle_run(place: bool):
+    """Both systems through the cycle's two parts; per system, the frames
+    each call returned and the BA rounds after each part."""
+    kw = dict(enable_place_recognition=place, sync_every=CYCLE_SYNC)
+    if place:
+        kw["vocab_path"] = VOCAB
+    ref = JaxSLAM(CYCLE_CFG, **kw)
+    port = SLAMSystem(CYCLE_PCFG, device="cpu", **kw, **(
+        dict(sampler=JaxSampler(sum(CYCLE_PARTS))) if place else {}))
+    out = {}
+    for name, slam in (("reference", ref), ("port", port)):
+        batches = cycle_batches()
+        returned, ba_runs = [], []
+        for n in CYCLE_PARTS:
+            for _ in range(n // CYCLE_BATCH):
+                returned.append(len(slam.process_batch(*next(batches))))
+            slam.finalize()
+            ba_runs.append(slam.stats["ba_runs"])
+        out[name] = dict(slam=slam, returned=returned, ba_runs=ba_runs)
+    print(f"cycle, place recognition {place}: " + ", ".join(
+        f"{k} keyframes {v['slam'].stats['keyframes']} BA {v['ba_runs']}"
+        for k, v in out.items()))
+    return out
+
+
+@pytest.fixture(params=[False, True], ids=["place_off", "place_on"])
+def cycle_runs(request):
+    return cycle_run(request.param)
+
+
+def test_cycle_emits_every_frame_on_the_references_cadence(cycle_runs):
+    want = list(np.concatenate([b[2] for b in cycle_batches()]))
+    for r in cycle_runs.values():
+        assert [f.timestamp for f in r["slam"].trajectory] == want
+    port, ref = cycle_runs["port"], cycle_runs["reference"]
+    assert port["returned"] == ref["returned"]
+    checks = [len(r["slam"].loop_candidates) + len(r["slam"].reloc_log)
+              for r in (port, ref)]
+    assert checks[0] == checks[1], checks
+
+
+def test_cycle_ba_rounds_equal(cycle_runs):
+    port, ref = cycle_runs["port"]["ba_runs"], \
+        cycle_runs["reference"]["ba_runs"]
+    # a round in the first 48 frames, one more in the next 24
+    assert port == ref and 1 <= port[0] < port[1], (port, ref)
+
+
+def test_cycle_keyframes_within_one(cycle_runs):
+    kf = [r["slam"].stats["keyframes"] for r in cycle_runs.values()]
+    assert min(kf) >= 2 and abs(kf[0] - kf[1]) <= 1, kf
+
+
+def test_process_batch_takes_tensors_as_it_takes_arrays():
+    """The cycle's batches handed over as CPU tensors give the poses and
+    flags, bit for bit, of the same batches as numpy arrays (place
+    recognition off, the port's own draws)."""
+    slam = SLAMSystem(CYCLE_PCFG, device="cpu", enable_place_recognition=False,
+                      sync_every=CYCLE_SYNC)
+    batches = cycle_batches()
+    for n in CYCLE_PARTS:
+        for _ in range(n // CYCLE_BATCH):
+            gs, ds, tss = next(batches)
+            slam.process_batch(torch.from_numpy(gs), torch.from_numpy(ds), tss)
+        slam.finalize()
+    want = cycle_run(False)["port"]["slam"]
+    np.testing.assert_array_equal(slam.frontend_trajectory()[2],
+                                  want.frontend_trajectory()[2])
+    assert [(f.is_keyframe, f.tracking_ok) for f in slam.trajectory] == \
+        [(f.is_keyframe, f.tracking_ok) for f in want.trajectory]
+    assert len(slam.trajectory) == sum(CYCLE_PARTS)
